@@ -1,0 +1,45 @@
+"""The PyTorch port imports no jax, flax or optax, and nothing of the JAX
+package: the machine with the card has none of them."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_DIR = REPO_ROOT / "skeleton_action_recognition_tpu_torch"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'optax',\n"
+        "             'skeleton_action_recognition_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import skeleton_action_recognition_tpu_torch\n"
+        "import skeleton_action_recognition_tpu_torch.models.stgcn\n"
+        "import skeleton_action_recognition_tpu_torch.serving\n"
+        "import skeleton_action_recognition_tpu_torch.ops.sgcn\n"
+        "import skeleton_action_recognition_tpu_torch.interop\n"
+        "import chip_smoke\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_port_source_names_jax():
+    """Catches imports inside functions too, which the import test above
+    does not reach."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+"
+        r"(jax|flax|optax|skeleton_action_recognition_tpu)\b", re.M
+    )
+    sources = list(PORT_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+    offenders = [
+        str(p.relative_to(REPO_ROOT)) for p in sources
+        if pattern.search(p.read_text())
+    ]
+    assert len(sources) > 5 and offenders == []
