@@ -24,9 +24,11 @@ class GraphConvTD(nn.Module):
     contracted against the ``(K, V, V)`` spatial-partition stack:
     ``out[.., w, c] = sum_k sum_v A[k, v, w] z[.., v, k, c]``.
 
-    ``fused=True`` runs the CUDA kernel (:func:`..ops.sgcn.fused_graph_conv`)
-    that keeps ``z`` on chip. Both paths share the ``Dense_0`` parameters,
-    as in the JAX package.
+    ``fused=True`` runs the CUDA kernels (:func:`..ops.sgcn.fused_graph_conv`,
+    an autograd Function) that keep ``z`` and, in the backward, ``dz`` on
+    chip. Both paths share the ``Dense_0`` parameters, as in the JAX
+    package. The fused path takes the adjacency as a constant, so a
+    trainable adjacency (one that requires grad) raises there.
     """
 
     def __init__(
@@ -43,6 +45,11 @@ class GraphConvTD(nn.Module):
     def forward(self, x, a):
         x = x.to(self.dtype or x.dtype)
         if self.fused:
+            if a.requires_grad:
+                raise ValueError(
+                    "the fused spatial conv takes the adjacency as a "
+                    "constant; it cannot train it (trainable_adjacency)"
+                )
             return fused_graph_conv(
                 x.contiguous(), self.Dense_0.weight, self.Dense_0.bias, a
             )

@@ -1,4 +1,4 @@
-"""ST-GCN: spatio-temporal graph convolutional network, eval-mode forward.
+"""ST-GCN: spatio-temporal graph convolutional network.
 
 Counterpart of ``skeleton_action_recognition_tpu/models/stgcn.py``: a data
 BatchNorm over the flattened ``(V * C)`` features, 10 blocks (64 x4,
@@ -7,7 +7,8 @@ graph conv, a BN -> ReLU -> ``[9, 1]`` temporal conv -> BN and a residual,
 then pooling, the mean over bodies and a dense logits head. Activations are
 channels-last ``(N*M, T, V, C)``. Module and parameter names follow the flax
 tree, so :func:`..interop.flax_to_state_dict` maps a JAX checkpoint's
-variables one to one.
+variables one to one. ``model.train()`` selects the flax ``train=True``
+path (batch statistics); ``model.eval()`` the running statistics.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     NUM_JOINTS,
@@ -23,6 +25,7 @@ from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
 from skeleton_action_recognition_tpu_torch.models.gcn import GraphConvTD
 from skeleton_action_recognition_tpu_torch.models.layers import (
     BatchNorm,
+    frozen_stats,
     init_layer,
 )
 
@@ -161,14 +164,33 @@ def reshape_skeleton_input(x):
     return x.reshape(n * m, t, v, c), n, m
 
 
+def remat_block(block: nn.Module, x, a):
+    """``block(x, a)`` under ``torch.utils.checkpoint``: its activations are
+    dropped after the forward and recomputed in the backward (flax
+    ``nn.remat``, policy "full"). The recompute leaves the BatchNorm
+    running statistics as the first run set them, as flax does."""
+    first = [True]
+
+    def run(x, a):
+        with frozen_stats(block, frozen=not first[0]):
+            first[0] = False
+            return block(x, a)
+
+    return checkpoint(run, x, a, use_reentrant=False)
+
+
 class STGCNBackbone(nn.Module):
-    """data-BN + the 10 blocks of ``BLOCK_PLAN`` + pooling/logits head."""
+    """data-BN + the 10 blocks of ``BLOCK_PLAN`` + pooling/logits head.
+    With ``remat``, each block is rematerialized when gradients are
+    taken."""
 
     def __init__(
         self, num_classes: int = 60, dtype=None, fused_sgcn: bool = False,
-        fused_sgcn_min_channels: int = 0, generator=None,
+        fused_sgcn_min_channels: int = 0, remat: bool = True,
+        generator=None,
     ):
         super().__init__()
+        self.remat = remat
         self.data_bn = DataBatchNorm(NUM_JOINTS * IN_CHANNELS, dtype)
         c = IN_CHANNELS
         for i, (filters, stride, residual) in enumerate(BLOCK_PLAN):
@@ -183,8 +205,10 @@ class STGCNBackbone(nn.Module):
     def forward(self, x, a):
         x, n, m = reshape_skeleton_input(x)
         x = self.data_bn(x)
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(len(BLOCK_PLAN)):
-            x = getattr(self, f"block_{i}")(x, a)
+            block = getattr(self, f"block_{i}")
+            x = remat_block(block, x, a) if remat else block(x, a)
         # pool in f32: a bf16 sum over T*V ~ 7.5k terms loses mantissa
         x = x.float().mean(dim=(1, 2))
         x = x.reshape(n, m, -1).mean(dim=1)  # mean over bodies
@@ -197,27 +221,40 @@ class Model(nn.Module):
     ``dtype`` (None or ``torch.bfloat16``) is the compute type of the
     blocks; parameters, pooling and logits stay float32. ``fused_sgcn``
     routes the spatial conv of every block with at least
-    ``fused_sgcn_min_channels`` filters through the CUDA kernel. Weights
-    are drawn from ``generator`` on the CPU and moved to ``device``.
+    ``fused_sgcn_min_channels`` filters through the CUDA kernels.
+    ``remat`` (default on, as in the JAX model) recomputes each block in
+    the backward pass. ``trainable_adjacency`` makes the spatial-partition
+    stack a parameter, ``adjacency_matrix`` (the flax
+    ``params['adjacency_matrix']``); the fused kernels take it as a
+    constant, so the two exclude each other. Weights are drawn from
+    ``generator`` on the CPU and moved to ``device``.
     """
 
     def __init__(
         self, num_classes: int = 60, dtype=None, fused_sgcn: bool = False,
-        fused_sgcn_min_channels: int = 0, device=None, generator=None,
+        fused_sgcn_min_channels: int = 0, remat: bool = True,
+        trainable_adjacency: bool = False, device=None, generator=None,
     ):
         super().__init__()
+        if fused_sgcn and trainable_adjacency:
+            raise ValueError(
+                "fused_sgcn takes the adjacency as a constant; it is "
+                "incompatible with trainable_adjacency"
+            )
         self.backbone = STGCNBackbone(
             num_classes, dtype=dtype, fused_sgcn=fused_sgcn,
-            fused_sgcn_min_channels=fused_sgcn_min_channels,
+            fused_sgcn_min_channels=fused_sgcn_min_channels, remat=remat,
             generator=generator,
         )
-        # the constant spatial-partition stack (not trainable, so not in
-        # the state dict, as it is not among the JAX model's params)
-        self.register_buffer(
-            "adjacency", torch.from_numpy(spatial_adjacency()),
-            persistent=False,
-        )
+        a = torch.from_numpy(spatial_adjacency())
+        if trainable_adjacency:
+            self.adjacency_matrix = nn.Parameter(a)
+        else:
+            # a constant: not in the state dict, as it is not among the JAX
+            # model's params
+            self.register_buffer("adjacency", a, persistent=False)
         self.to(device)
 
     def forward(self, x):
-        return self.backbone(x, self.adjacency)
+        a = getattr(self, "adjacency_matrix", None)
+        return self.backbone(x, self.adjacency if a is None else a)

@@ -1,16 +1,25 @@
-"""Fused ST-GCN spatial graph conv: the CUDA kernel and its plain version.
+"""Fused ST-GCN spatial graph conv: the CUDA kernels and their plain versions.
 
 Counterpart of ``skeleton_action_recognition_tpu/ops/pallas/sgcn.py``'s
-``make_fused_graph_conv(a, v)`` (``with_stats=False``, forward only). The
+``make_fused_graph_conv(a, v)`` (``with_stats=False``) and its VJP. The
 kernel in ``csrc/sgcn_fwd.cu`` replaces the TPU kernel ``_fwd_kernel``:
 
     ``z_k = x @ W_k^T + b_k``          (1x1 conv, one slice per partition)
     ``out[.., w, o] = sum_kv A[k,v,w] z_k[.., v, o]``
 
-The unfused version writes ``z``, three times the output, to device memory
-and reads it back; in bf16 at the model's widths that traffic bounds it on
-the H100 (in f32 without TF32 both paths are bound by CUDA-core FLOPs).
-The kernel keeps ``z`` in shared memory (see the source's note).
+and ``csrc/sgcn_bwd.cu`` replaces ``_bwd_kernel``: from the output
+cotangent ``g``, ``dz = A g`` per partition, ``dx = sum_k dz_k W_k``,
+``dW_k = dz_k^T x`` and ``db_k = sum dz_k`` over all rows.
+
+The unfused versions write ``z`` (forward) and ``dz`` (backward), three
+times the output, to device memory and read them back; in bf16 at the
+model's widths that traffic bounds them on the H100 (in f32 without TF32
+both paths are bound by CUDA-core FLOPs). The kernels keep ``z`` and ``dz``
+in shared memory (see the sources' notes).
+
+:class:`FusedGraphConv` ties the two into an autograd Function. Like the
+JAX VJP it saves its input ``x`` (not ``z``) and treats the adjacency as a
+constant with a zero cotangent.
 
 The weight is ``nn.Linear``'s ``(K * C_out, C_in)``, partition-major rows,
 the transpose of the JAX package's flax ``(C_in, K * C_out)`` kernel.
@@ -28,6 +37,13 @@ from skeleton_action_recognition_tpu_torch.ops.build import load_library
 
 K_PARTS = 3
 NUM_JOINTS = 25
+# csrc/sgcn_bwd.cu's dW tiling: frames per chunk, output and input channels
+# per block. The wrapper sizes the workspace from them.
+_DW_FRAMES, _DW_OT, _DW_IT = 2, 32, 64
+# dW blocks to aim for: four per SM of the H100's 132, so that every SM has
+# work; the split count depends on the shapes alone, which keeps the sums'
+# order, and so the result, the same from launch to launch
+_DW_TARGET_BLOCKS = 4 * 132
 
 
 def graph_conv_reference(x, weight, bias, a):
@@ -42,7 +58,24 @@ def graph_conv_reference(x, weight, bias, a):
     return torch.einsum("ntvko,kvw->ntwo", z, a.to(x.dtype))
 
 
+def graph_conv_backward_reference(x, weight, a, g):
+    """Plain PyTorch backward of :func:`graph_conv_reference`, rounding
+    where the TPU kernel rounds: ``g``, ``A`` and ``W`` in ``x``'s dtype,
+    ``dz`` summed in f32 and rounded to it, ``dx``/``dW``/``db`` summed in
+    f32; ``dx`` in ``x.dtype``, ``dW (K * C_out, C_in)`` and ``db`` in f32.
+    """
+    mm = x.dtype
+    g = g.to(mm).float()
+    dz = torch.einsum("kvw,ntwo->ntvko", a.to(mm).float(), g).to(mm)
+    dz = dz.float().reshape(-1, weight.shape[0])
+    x2 = x.float().reshape(-1, x.shape[-1])
+    dx = (dz @ weight.to(mm).float()).reshape(x.shape).to(mm)
+    return dx, dz.T @ x2, dz.sum(0)
+
+
 def _check(x, weight, bias, a):
+    """Raise on what the kernels do not take (``bias=None``: the
+    backward's arguments)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.ndim != 4 or x.shape[2] != NUM_JOINTS:
@@ -62,6 +95,8 @@ def _check(x, weight, bias, a):
         "bias": (bias, (weight.shape[0],)),
         "a": (a, (K_PARTS, NUM_JOINTS, NUM_JOINTS)),
     }
+    if bias is None:
+        del expected["bias"]
     for name, (t, shape) in expected.items():
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(
@@ -72,50 +107,143 @@ def _check(x, weight, bias, a):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-@functools.cache
-def _library():
-    lib = load_library("sgcn_fwd.cu")
-    for fn in (lib.sgcn_fwd_f32, lib.sgcn_fwd_bf16):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def fused_graph_conv(x, weight, bias, a):
-    """Spatial graph conv through the CUDA kernel.
-
-    Same arguments and result as :func:`graph_conv_reference`, with
-    ``weight``, ``bias`` and ``a`` in float32 on ``x``'s device. A CPU
-    tensor goes to :func:`graph_conv_reference`; a CUDA tensor launches the
-    kernel (counted in ``fused_graph_conv.launches``) or raises.
-    """
-    _check(x, weight, bias, a)
-    if x.device.type == "cpu":
-        return graph_conv_reference(x, weight, bias, a)
-    if x.device.type != "cuda":
-        raise ValueError(f"no sgcn kernel for device {x.device}")
-    for name, t in (("x", x), ("weight", weight), ("bias", bias), ("a", a)):
+def _check_cuda(**tensors):
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"no sgcn kernel for device {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+@functools.cache
+def _kernels(source: str, n_pointers: int, n_ints: int):
+    """``{dtype: C function}`` of ``csrc/<source>``'s f32 and bf16 entry
+    points, which take ``n_pointers`` pointers, ``n_ints`` ints and the
+    stream, and return a ``cudaError_t``."""
+    lib = load_library(source)
+    stem = source.removesuffix(".cu")
+    fns = {}
+    for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        fn = getattr(lib, f"{stem}_{suffix}")
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+            + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        fns[dtype] = fn
+    return fns
+
+
+def _launch(fn, name, device, *args):
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+def _forward(x, weight, bias, a):
+    """``out`` through the kernel on CUDA, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return graph_conv_reference(x, weight, bias, a)
+    _check_cuda(x=x, weight=weight, bias=bias, a=a)
     nm, t, v, c_in = x.shape
     c_out = weight.shape[0] // K_PARTS
     out = torch.empty((nm, t, v, c_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _library()
-    fn = lib.sgcn_fwd_f32 if x.dtype == torch.float32 else lib.sgcn_fwd_bf16
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), a.data_ptr(),
-            out.data_ptr(), nm * t, c_in, c_out,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"sgcn_fwd launch failed: cudaError_t {err}")
+    _launch(
+        _kernels("sgcn_fwd.cu", 5, 3)[x.dtype], "sgcn_fwd", x.device,
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), a.data_ptr(),
+        out.data_ptr(), nm * t, c_in, c_out,
+    )
     fused_graph_conv.launches += 1
     return out
 
 
+def backward_splits(frames: int, c_in: int, c_out: int) -> int:
+    """How many row splits ``csrc/sgcn_bwd.cu`` sums ``dW``/``db`` over:
+    enough blocks to fill the card, at least one chunk of frames each. The
+    workspace holds one ``(K * C_out, C_in + 1)`` f32 partial per split,
+    at most ~13 MB at the model's shapes."""
+    tiles = -(-c_out // _DW_OT) * -(-c_in // _DW_IT)
+    return max(1, min(-(-_DW_TARGET_BLOCKS // tiles),
+                      -(-frames // _DW_FRAMES)))
+
+
+def fused_graph_conv_backward(x, weight, a, g):
+    """Backward of the spatial graph conv through the CUDA kernel.
+
+    ``x (NM, T, V, C_in)`` and ``weight``, ``a`` as for
+    :func:`fused_graph_conv`; ``g (NM, T, V, C_out)``, the output's
+    cotangent, is cast to ``x.dtype``. Returns ``(dx, dweight, dbias)`` as
+    :func:`graph_conv_backward_reference` does. A CPU tensor goes to that
+    plain version; a CUDA tensor launches the kernel (counted in
+    ``fused_graph_conv_backward.launches``) or raises.
+    """
+    _check(x, weight, None, a)
+    c_out = weight.shape[0] // K_PARTS
+    if tuple(g.shape) != tuple(x.shape[:3]) + (c_out,):
+        raise ValueError(
+            f"g must be {tuple(x.shape[:3]) + (c_out,)}, got {tuple(g.shape)}"
+        )
+    if g.device != x.device:
+        raise ValueError(f"g is on {g.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        return graph_conv_backward_reference(x, weight, a, g)
+    _check_cuda(x=x, g=g, weight=weight, a=a)
+    g = g.to(x.dtype)
+    nm, t, v, c_in = x.shape
+    frames = nm * t
+    dx = torch.empty_like(x)
+    dw = torch.empty(weight.shape, dtype=torch.float32, device=x.device)
+    db = torch.empty(weight.shape[0], dtype=torch.float32, device=x.device)
+    if frames == 0:
+        return dx, dw.zero_(), db.zero_()
+    splits = backward_splits(frames, c_in, c_out)
+    ws = torch.empty(
+        splits * weight.shape[0] * (c_in + 1), dtype=torch.float32,
+        device=x.device,
+    )
+    _launch(
+        _kernels("sgcn_bwd.cu", 8, 4)[x.dtype], "sgcn_bwd", x.device,
+        x.data_ptr(), g.data_ptr(), weight.data_ptr(), a.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), db.data_ptr(), ws.data_ptr(),
+        frames, c_in, c_out, splits,
+    )
+    fused_graph_conv_backward.launches += 1
+    return dx, dw, db
+
+
+class FusedGraphConv(torch.autograd.Function):
+    """The spatial graph conv with the kernels on both passes. Saves ``x``
+    and ``weight``; the adjacency gets no gradient (it is a constant, as
+    in the JAX VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, a):
+        ctx.save_for_backward(x, weight, a)
+        return _forward(x, weight, bias, a)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, a = ctx.saved_tensors
+        dx, dw, db = fused_graph_conv_backward(x, weight, a, g.contiguous())
+        return dx, dw, db, None
+
+
+def fused_graph_conv(x, weight, bias, a):
+    """Spatial graph conv through the CUDA kernels, differentiable in
+    ``x``, ``weight`` and ``bias``.
+
+    Same arguments and result as :func:`graph_conv_reference`, with
+    ``weight``, ``bias`` and ``a`` in float32 on ``x``'s device. CPU tensors
+    go to the plain versions; CUDA tensors launch the forward kernel
+    (counted in ``fused_graph_conv.launches``) and, in the backward, the
+    backward kernel, or raise.
+    """
+    _check(x, weight, bias, a)
+    return FusedGraphConv.apply(x, weight, bias, a)
+
+
 fused_graph_conv.launches = 0
+fused_graph_conv_backward.launches = 0

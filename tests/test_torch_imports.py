@@ -11,9 +11,11 @@ PORT_DIR = REPO_ROOT / "skeleton_action_recognition_tpu_torch"
 
 
 def test_port_imports_with_jax_blocked():
+    """Also blocks the two packages the card's machine lacks and the JAX
+    package's helpers used: PyYAML and matplotlib."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'optax',\n"
+        "for name in ('jax', 'flax', 'optax', 'yaml', 'matplotlib',\n"
         "             'skeleton_action_recognition_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import skeleton_action_recognition_tpu_torch\n"
@@ -21,6 +23,21 @@ def test_port_imports_with_jax_blocked():
         "import skeleton_action_recognition_tpu_torch.serving\n"
         "import skeleton_action_recognition_tpu_torch.ops.sgcn\n"
         "import skeleton_action_recognition_tpu_torch.interop\n"
+        "import skeleton_action_recognition_tpu_torch.cli.main_gnn\n"
+        "import skeleton_action_recognition_tpu_torch.data.pipeline\n"
+        "import skeleton_action_recognition_tpu_torch.data.proto\n"
+        "import skeleton_action_recognition_tpu_torch.data.streams\n"
+        "import skeleton_action_recognition_tpu_torch.data.tfrecord\n"
+        "import skeleton_action_recognition_tpu_torch.parallel.sharding\n"
+        "import skeleton_action_recognition_tpu_torch.train.checkpoint\n"
+        "import skeleton_action_recognition_tpu_torch.train.losses\n"
+        "import skeleton_action_recognition_tpu_torch.train.metrics\n"
+        "import skeleton_action_recognition_tpu_torch.train.optim\n"
+        "import skeleton_action_recognition_tpu_torch.train.schedules\n"
+        "import skeleton_action_recognition_tpu_torch.train.steps\n"
+        "import skeleton_action_recognition_tpu_torch.utils.config\n"
+        "import skeleton_action_recognition_tpu_torch.utils.confusion\n"
+        "import skeleton_action_recognition_tpu_torch.utils.tb_writer\n"
         "import chip_smoke\n"
     )
     proc = subprocess.run(

@@ -1,4 +1,5 @@
-"""The CUDA spatial graph-conv kernel against its plain version, on the card.
+"""The CUDA spatial graph-conv kernels, forward and backward, against their
+plain versions, on the card.
 
 Marked ``gpu``: each test skips where there is no CUDA device. The file
 imports neither jax nor the test configuration's jax setup, so on a
@@ -78,3 +79,92 @@ def test_kernel_rejects_a_strided_input(cuda):
     x, w, b, a = _inputs(8, 16, 16, torch.float32, cuda)
     with pytest.raises(ValueError):
         sgcn.fused_graph_conv(x[:, ::2], w, b, a)
+
+
+# max |kernel - plain| / max |plain| of dx, dW and db. f32: dx sums at most
+# 3 * 256 terms, dW and db up to 1.9 M rows, in other orders (measured
+# ~5e-6). bf16: dx is rounded to bf16 once from f32 sums taken in other
+# orders, so an element may differ by a bf16 ulp; dW and db leave in f32
+# from the same bf16 dz in both.
+BWD_REL_TOL = {torch.float32: (1e-5, 1e-4, 1e-4),
+               torch.bfloat16: (2e-2, 1e-4, 1e-4)}
+
+
+def _bwd_inputs(t, c_in, c_out, dtype, device, nm=4):
+    x, w, _, a = _inputs(t, c_in, c_out, dtype, device, nm)
+    g = torch.Generator(device=device).manual_seed(t * c_in + c_out)
+    gout = torch.randn(nm, t, 25, c_out, generator=g, device=device)
+    return x, w, a, gout.to(dtype)
+
+
+def _assert_close(got, want, tols):
+    for name, p, q, tol in zip(("dx", "dW", "db"), got, want, tols):
+        assert p.dtype == q.dtype and p.shape == q.shape, name
+        err = (p.float() - q.float()).abs().max().item()
+        assert err <= tol * q.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t,c_in,c_out", MODEL_SHAPES)
+def test_backward_kernel_matches_plain_version(cuda, t, c_in, c_out, dtype):
+    x, w, a, g = _bwd_inputs(t, c_in, c_out, dtype, cuda)
+    before = sgcn.fused_graph_conv_backward.launches
+    got = sgcn.fused_graph_conv_backward(x, w, a, g)
+    torch.cuda.synchronize()
+    assert sgcn.fused_graph_conv_backward.launches == before + 1
+    want = sgcn.graph_conv_backward_reference(x, w, a, g)
+    _assert_close(got, want, BWD_REL_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_backward_kernel_takes_a_partial_last_block(cuda):
+    """An odd number of frames, C_in and C_out no multiples of the tiles,
+    and more splits of dW than frames would fill."""
+    x, w, a, g = _bwd_inputs(7, 20, 40, torch.float32, cuda, nm=3)
+    got = sgcn.fused_graph_conv_backward(x, w, a, g)
+    want = sgcn.graph_conv_backward_reference(x, w, a, g)
+    _assert_close(got, want, BWD_REL_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_kernel_repeats_bit_for_bit(cuda, dtype):
+    """No float atomics: two launches on the same inputs agree exactly."""
+    x, w, a, g = _bwd_inputs(150, 128, 128, dtype, cuda, nm=8)
+    first = sgcn.fused_graph_conv_backward(x, w, a, g)
+    second = sgcn.fused_graph_conv_backward(x, w, a, g)
+    for p, q in zip(first, second):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.gpu
+def test_backward_kernel_rejects_a_strided_input(cuda):
+    x, w, a, g = _bwd_inputs(8, 16, 16, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        sgcn.fused_graph_conv_backward(x[:, ::2], w, a, g[:, ::2])
+    with pytest.raises(ValueError):
+        sgcn.fused_graph_conv_backward(x, w, a, g.transpose(0, 1))
+
+
+@pytest.mark.gpu
+def test_autograd_function_launches_both_kernels(cuda):
+    """On CUDA tensors the op's gradient comes from the backward kernel
+    and equals the plain backward's."""
+    x, w, b, a = _inputs(12, 16, 32, torch.float32, cuda)
+    x.requires_grad_()
+    w.requires_grad_()
+    b.requires_grad_()
+    fwd = sgcn.fused_graph_conv.launches
+    bwd = sgcn.fused_graph_conv_backward.launches
+    out = sgcn.fused_graph_conv(x, w, b, a)
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert sgcn.fused_graph_conv.launches == fwd + 1
+    assert sgcn.fused_graph_conv_backward.launches == bwd + 1
+    want = sgcn.graph_conv_backward_reference(x.detach(), w.detach(), a, g)
+    _assert_close((x.grad, w.grad, b.grad), want,
+                  BWD_REL_TOL[torch.float32])

@@ -1,0 +1,190 @@
+"""The fused spatial graph conv's gradient: the autograd Function and the
+plain backward against JAX and torch autograd.
+
+On the CPU ``fused_graph_conv`` runs its plain forward and backward; the
+CUDA backward kernel is held against the plain backward on the card
+(``test_torch_sgcn_gpu.py`` and ``chip_smoke.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from skeleton_action_recognition_tpu.graphs.ntu_rgb_d import Graph
+from skeleton_action_recognition_tpu.models.gcn import (
+    GraphConvTD as JaxGraphConvTD,
+)
+from skeleton_action_recognition_tpu.ops.pallas.sgcn import (
+    make_fused_graph_conv,
+)
+from skeleton_action_recognition_tpu_torch import interop
+from skeleton_action_recognition_tpu_torch.models.gcn import GraphConvTD
+from skeleton_action_recognition_tpu_torch.ops import sgcn
+
+A = Graph("spatial").A.astype(np.float32)
+# the JAX package's own tolerance for the Pallas VJP against autodiff of
+# the einsum (tests/test_pallas_sgcn.py): f32 sums in other orders
+GRAD_TOL = dict(rtol=2e-4, atol=1e-5)
+
+
+def _inputs(seed, nm, t, c_in, c_out):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(nm, t, 25, c_in)).astype(np.float32)
+    kernel = rng.normal(size=(c_in, 3 * c_out)).astype(np.float32) * 0.1
+    bias = rng.normal(size=(3 * c_out,)).astype(np.float32)
+    return x, kernel, bias
+
+
+def _port_grads(fn, x, kernel, bias):
+    xt = torch.tensor(x, requires_grad=True)
+    wt = torch.tensor(kernel.T.copy(), requires_grad=True)
+    bt = torch.tensor(bias, requires_grad=True)
+    torch.sin(fn(xt, wt, bt, torch.from_numpy(A))).sum().backward()
+    return xt.grad.numpy(), wt.grad.numpy().T, bt.grad.numpy()
+
+
+@pytest.mark.parametrize("c_in", [3, 16])
+@pytest.mark.parametrize("t", [10, 12, 25])
+def test_fused_op_gradients_match_pallas_vjp(t, c_in):
+    """dx/dW/db of a sum(sin(out)) loss against jax.grad through the
+    Pallas kernel's custom VJP (interpret mode). T=10, 12 and 25 are its
+    tail-group cases; C_in=3 is the first block's input width."""
+    x, kernel, bias = _inputs(t * 10 + c_in, 2, t, c_in, 8)
+    fgc = make_fused_graph_conv(A, 25)
+    want = jax.grad(
+        lambda s: jnp.sum(jnp.sin(fgc(*s)))
+    )((jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(bias)))
+    got = _port_grads(sgcn.fused_graph_conv, x, kernel, bias)
+    for name, g, w in zip(("dx", "dW", "db"), got, want):
+        np.testing.assert_allclose(g, np.asarray(w), err_msg=name,
+                                   **GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_reference_matches_autograd(dtype):
+    """graph_conv_backward_reference against torch autograd of
+    graph_conv_reference. f32: the same sums in other orders (1e-5).
+    bf16: the plain backward sums dz, dx and dW in f32 as the TPU kernel
+    does, so it is held against autograd of the f32 forward on the same
+    bf16-rounded inputs, within bf16's rounding of dz and dx (2^-7 of
+    the largest gradient)."""
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.normal(size=(2, 6, 25, 5)), dtype=torch.float32)
+    w = torch.tensor(rng.normal(size=(12, 5)), dtype=torch.float32)
+    b = torch.tensor(rng.normal(size=(12,)), dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=(2, 6, 25, 4)), dtype=torch.float32)
+    a = torch.from_numpy(A)
+    x, g = x.to(dtype), g.to(dtype)
+    xr = x.float().clone().requires_grad_()
+    wr = w.to(dtype).float().clone().requires_grad_()
+    br = b.clone().requires_grad_()
+    sgcn.graph_conv_reference(xr, wr, br, a.to(dtype).float()).backward(
+        g.float()
+    )
+    got = sgcn.graph_conv_backward_reference(x, w, a, g)
+    assert got[0].dtype == dtype
+    assert got[1].dtype == got[2].dtype == torch.float32
+    for name, p, want in zip(("dx", "dW", "db"), got, (xr, wr, br)):
+        ref = want.grad
+        tol = 1e-5 if dtype == torch.float32 else 2**-7
+        np.testing.assert_allclose(
+            p.float().numpy(), ref.numpy(), rtol=0,
+            atol=tol * ref.abs().max().item(), err_msg=name,
+        )
+
+
+def test_fused_layer_gradients_equal_stock_and_jax_layer():
+    """GraphConvTD(fused=True) trains: its parameter and input gradients
+    equal the stock layer's (torch autograd) and the JAX stock layer's,
+    from the same bridged weights."""
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 8, 25, 12)).astype(np.float32)
+    layer = JaxGraphConvTD(16)
+    variables = jax.device_get(
+        layer.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(A))
+    )
+    variables["params"]["Dense_0"]["bias"] = np.linspace(
+        -1, 1, 48, dtype=np.float32
+    )
+
+    def jax_loss(params, xx):
+        out, _ = layer.apply({"params": params}, xx, jnp.asarray(A))
+        return jnp.sum(jnp.sin(out))
+
+    jax_gp, jax_gx = jax.grad(jax_loss, argnums=(0, 1))(
+        variables["params"], jnp.asarray(x)
+    )
+    grads = {}
+    for fused in (False, True):
+        port = GraphConvTD(12, 16, fused=fused)
+        port.load_state_dict(interop.flax_to_state_dict(variables))
+        xt = torch.tensor(x, requires_grad=True)
+        torch.sin(port(xt, torch.from_numpy(A))).sum().backward()
+        grads[fused] = (
+            xt.grad.numpy(), port.Dense_0.weight.grad.numpy(),
+            port.Dense_0.bias.grad.numpy(),
+        )
+    want = (
+        np.asarray(jax_gx), np.asarray(jax_gp["Dense_0"]["kernel"]).T,
+        np.asarray(jax_gp["Dense_0"]["bias"]),
+    )
+    for name, fused, stock, ref in zip(
+        ("dx", "dW", "db"), grads[True], grads[False], want
+    ):
+        np.testing.assert_allclose(fused, stock, err_msg=name, **GRAD_TOL)
+        np.testing.assert_allclose(fused, ref, err_msg=name, **GRAD_TOL)
+
+
+def test_fused_layer_refuses_a_trainable_adjacency():
+    layer = GraphConvTD(4, 8, fused=True)
+    a = torch.from_numpy(A).requires_grad_()
+    with pytest.raises(ValueError):
+        layer(torch.zeros(1, 2, 25, 4), a)
+
+
+def test_cpu_backward_takes_the_plain_version_without_a_launch():
+    x = torch.zeros(2, 4, 25, 8)
+    before = sgcn.fused_graph_conv_backward.launches
+    dx, dw, db = sgcn.fused_graph_conv_backward(
+        x, torch.zeros(48, 8), torch.from_numpy(A), torch.ones(2, 4, 25, 16)
+    )
+    assert dx.shape == x.shape and dw.shape == (48, 8) and db.shape == (48,)
+    assert sgcn.fused_graph_conv_backward.launches == before
+
+
+@pytest.mark.parametrize(
+    "override,error",
+    [
+        (dict(g=torch.zeros(2, 4, 25, 15)), ValueError),
+        (dict(g=torch.zeros(2, 4, 24, 16)), ValueError),
+        (dict(g=torch.zeros(2, 3, 25, 16)), ValueError),
+        (dict(x=torch.zeros(2, 4, 25, 8, dtype=torch.float64)), TypeError),
+        (dict(weight=torch.zeros(48, 9)), ValueError),
+        (dict(a=torch.zeros(2, 25, 25)), ValueError),
+        (dict(g=torch.zeros(2, 4, 25, 16, device="meta")), ValueError),
+    ],
+    ids=["g-channels", "g-joints", "g-frames", "x-f64", "w-cols",
+         "a-parts", "g-device"],
+)
+def test_backward_rejects_what_the_kernel_cannot_take(override, error):
+    args = dict(x=torch.zeros(2, 4, 25, 8), weight=torch.zeros(48, 8),
+                a=torch.from_numpy(A), g=torch.zeros(2, 4, 25, 16))
+    args.update(override)
+    with pytest.raises(error):
+        sgcn.fused_graph_conv_backward(**args)
+
+
+def test_backward_splits_bound_the_workspace():
+    """At NM=256 (128 clips) the dW workspace of every block shape stays
+    under 16 MB, and each split holds at least one chunk of frames."""
+    for t, c_in, c_out in [(300, 3, 64), (300, 64, 64), (300, 64, 128),
+                           (150, 128, 128), (150, 128, 256),
+                           (75, 256, 256)]:
+        frames = 256 * t
+        splits = sgcn.backward_splits(frames, c_in, c_out)
+        assert 1 <= splits <= frames // 2
+        assert splits * 3 * c_out * (c_in + 1) * 4 < 16e6
+    assert sgcn.backward_splits(3, 16, 16) == 2

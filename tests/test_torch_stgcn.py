@@ -123,13 +123,6 @@ def test_batch_norm_matches_flax(dtype):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
 
 
-def test_batch_norm_refuses_training_mode():
-    """Batch statistics and momentum updates come with the training
-    port; until then a module in training mode must not run."""
-    with pytest.raises(NotImplementedError):
-        layers.BatchNorm(7)(torch.zeros(2, 7))
-
-
 def test_conv_init_matches_flax_distribution():
     """CONV_INIT: the same truncated normal (scale 2 over fan_out) as flax,
     compared by its spread and bounds (the two draw different bits)."""

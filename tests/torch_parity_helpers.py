@@ -3,6 +3,13 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
+
+# The suite runs in several worker processes at once, and every worker
+# imports this module while it collects. torch's default of one intra-op
+# thread per core in each worker oversubscribes the cores several times
+# over (measured: the port's tests took 4x as long under four workers).
+torch.set_num_threads(2)
 
 
 def randomized_variables(model, x, seed):
