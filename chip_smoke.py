@@ -44,11 +44,38 @@ so the exit code is not 0.
    the prediction (20 forward and 10 backward a train step with remat, 10
    forward an eval batch). Also the TFRecord decode rate of this host.
 
+9. ``radar_kernel``: the spline radar kernels (#6 forward, #7 backward)
+   against their plain versions at the spectrogram trainer's shape (16
+   clips, T=300 upsampled 250x to 75,000 samples, 24 edges x 2 bodies),
+   seeded skeleton-like clips with one empty body, at lambda = 5e-4 and at
+   a damped lambda = 10: the error of each output, two backward launches
+   bit for bit, CUDA-event times of kernel and plain.
+10. ``stft_kernel``: the STFT log-magnitude kernels (#10, #11) against their
+    plain versions on that radar return (16 x 75,000 samples, n_fft 256,
+    hop 16: 4,688 frames), the same readings.
+11. ``spec_train``: training steps of the full-width spectrogram model
+    (ResNet-18, 64 filters, 256 x 256 images, 60 classes) at B=16, f32,
+    TF32 off, through the kernels and through the plain routes
+    (``use_pallas=False, use_pallas_stft=False``), radar frozen and then
+    unfrozen (lambda and loc), timed in turns (20 steps after 3 warm-up,
+    each ending synchronized): step time, clips/s, peak memory, the loss
+    finite (and falling while frozen), exactly 1 + 1 forward launches a
+    step and 1 + 1 backward launches a step unfrozen, none frozen. Then a
+    profiler trace of 3 unfrozen kernel steps.
+12. ``spec_cli``: ``cli.main_spectrogram.main`` on a seeded synthetic
+    ``.npy`` + pickled-label set (T=300, 60 classes, 48 training and 20
+    validation clips, B=16, kernels on), 2 epochs with lambda and loc
+    unfrozen after epoch 0, then ``--resume`` for a third: the checkpoints,
+    the resumed epoch, lambda frozen through epoch 0 and moving after,
+    finite metrics, and launch counts equal to the prediction.
+
 Then the kernels line (``sgcn_fwd`` ``ms``/``plain_ms``: f32 time of the
 ten spatial convs of one 64-clip request; ``sgcn_bwd``: f32 time of their
-ten backwards at NM=256; ``launches``: the counts of the ``cli`` run, the
-training main path), the card's name and power limit as ``nvidia-smi``
-prints them, and the result line.
+ten backwards at NM=256; ``radar_*``/``stft_*``: one call at 16 clips,
+lambda = 5e-4; ``launches``: the counts of the ``cli`` run for the sgcn
+kernels and of the ``spec_cli`` run for the others, the two training main
+paths, each counted from 0), the card's name and power limit as
+``nvidia-smi`` prints them, and the result line.
 """
 
 from __future__ import annotations
@@ -62,10 +89,12 @@ import tempfile
 import time
 from concurrent import futures
 
+import pickle
+
 import numpy as np
 import torch
 
-from skeleton_action_recognition_tpu_torch.cli import main_gnn
+from skeleton_action_recognition_tpu_torch.cli import main_gnn, main_spectrogram
 from skeleton_action_recognition_tpu_torch.data import tfrecord
 from skeleton_action_recognition_tpu_torch.data.pipeline import (
     TFRecordDataset,
@@ -74,11 +103,24 @@ from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     spatial_adjacency,
 )
 from skeleton_action_recognition_tpu_torch.models import layers
+from skeleton_action_recognition_tpu_torch.models import spectrogram
 from skeleton_action_recognition_tpu_torch.models.stgcn import Model
-from skeleton_action_recognition_tpu_torch.ops import build, sgcn
+from skeleton_action_recognition_tpu_torch.ops import (
+    build,
+    radar,
+    sgcn,
+    stft,
+    stft_logmag,
+)
 from skeleton_action_recognition_tpu_torch.serving import Predictor
-from skeleton_action_recognition_tpu_torch.train.optim import TFSGD
-from skeleton_action_recognition_tpu_torch.train.steps import make_train_step
+from skeleton_action_recognition_tpu_torch.train.optim import (
+    TFSGD,
+    RadarOptimizer,
+)
+from skeleton_action_recognition_tpu_torch.train.steps import (
+    make_radar_train_step,
+    make_train_step,
+)
 
 SEED = 0
 NM = 128  # 64 clips x 2 bodies
@@ -99,7 +141,8 @@ KERNEL_REL_TOL = {"f32": 1e-5, "bf16": 2e-2}
 # of a few bf16 ulps (2^-8 relative) carry through ten blocks.
 PROB_ATOL = {"f32": 1e-4, "bf16": 5e-2}
 REQUESTS = (1, 7, 64)
-SOURCES = ("sgcn_fwd.cu", "sgcn_bwd.cu")
+SOURCES = ("sgcn_fwd.cu", "sgcn_bwd.cu", "radar_fwd.cu", "radar_bwd.cu",
+           "stft_fwd.cu", "stft_bwd.cu")
 SGCN_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_fwd.cu"
 SGCN_REPLACES = "skeleton_action_recognition_tpu/ops/pallas/sgcn.py:90"
 SGCN_BWD_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_bwd.cu"
@@ -117,6 +160,30 @@ TRAIN_STEPS, TRAIN_WARMUP = 20, 3
 PROFILE_STEPS = 3
 CLI_CLIPS = {"train": 48, "val": 16}
 CLI_BATCH = 16
+# the spectrogram path: the JAX bench's SPEC_BATCH, T=300 upsampled 250x
+SPEC_BATCH, SPEC_T, SPEC_UP = 16, 300, 250
+SPEC_CLI_CLIPS = {"train": 48, "val": 20}  # the last eval batch is partial
+LAMBDAS = (5e-4, 10.0)  # the model's wavelength, and a damped one
+# kernel vs plain, max |diff| / max |plain| of each output. At lambda =
+# 5e-4 the phase is ~1e4 rad and the cubic is evaluated in other orders,
+# which moves it by ~1e-3 rad: 2e-3 for the return, 1e-2 for its
+# cotangents (the JAX package's Pallas-vs-XLA tolerances). At lambda = 10
+# both agree to f32 rounding of sums over up to 57.6 M terms: 1e-4.
+RADAR_TOL = {5e-4: (2e-3, 1e-2), 10.0: (1e-4, 1e-4)}
+# STFT kernel vs plain on normal signals: log|S| to 5e-4 absolute (f32
+# sums of 256 terms, the error growing as 1/|S| at the smallest bins,
+# tests/test_torch_stft.py), its (re, im) cotangent to 2e-3 of the largest
+# (the 1/|S| of the smallest of 16 x 4,688 x 256 bins: 9.0e-4 measured).
+# On the radar return, |S| + eps to 1e-5 of its largest (f32 sums of 256
+# terms in other orders: 7.3e-7 measured).
+STFT_ATOL, STFT_GRAD_TOL, STFT_MAG_TOL = 5e-4, 2e-3, 1e-5
+SPEC_LR = 1e-4  # the JAX bench's Adam rate
+KERNEL_REPLACES = {
+    "radar_fwd": "skeleton_action_recognition_tpu/ops/pallas/radar.py:524",
+    "radar_bwd": "skeleton_action_recognition_tpu/ops/pallas/radar.py:555",
+    "stft_fwd": "skeleton_action_recognition_tpu/ops/pallas/stft.py:119",
+    "stft_bwd": "skeleton_action_recognition_tpu/ops/pallas/stft.py:161",
+}
 
 
 def emit(phase, **record):
@@ -150,11 +217,17 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def tf32_off():
+    """f32 references: TF32 off in cuBLAS and cuDNN (``main_gnn``'s
+    default ``--precision`` turns both on for the whole process)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def phase_env():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32_off()
     emit(
         "env", nvidia_smi=nvidia_smi_line(), torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
@@ -376,16 +449,23 @@ def phase_latency(device, state, x, reps=20):
         )
 
 
+COUNTERS = {
+    "sgcn_fwd": sgcn.fused_graph_conv,
+    "sgcn_bwd": sgcn.fused_graph_conv_backward,
+    "radar_fwd": radar.spline_radar,
+    "radar_bwd": radar.spline_radar_backward,
+    "stft_fwd": stft_logmag.stft_logmag,
+    "stft_bwd": stft_logmag.stft_logmag_backward,
+}
+
+
 def reset_launches():
-    sgcn.fused_graph_conv.launches = 0
-    sgcn.fused_graph_conv_backward.launches = 0
+    for fn in COUNTERS.values():
+        fn.launches = 0
 
 
-def read_launches():
-    return {
-        "sgcn_fwd": sgcn.fused_graph_conv.launches,
-        "sgcn_bwd": sgcn.fused_graph_conv_backward.launches,
-    }
+def read_launches(names=("sgcn_fwd", "sgcn_bwd")):
+    return {name: COUNTERS[name].launches for name in names}
 
 
 def train_runs(device, name, batch):
@@ -597,6 +677,282 @@ def phase_cli(device):
     return launches
 
 
+SPEC_KERNELS = ("radar_fwd", "radar_bwd", "stft_fwd", "stft_bwd")
+
+
+def spec_clips(n, seed):
+    """Seeded skeleton-like clips ``(n, 3, T, 25, 2)`` (the JAX bench's
+    ``normal x 0.3``), the second body of the last clip all zero, and
+    labels of 60 classes."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, 3, SPEC_T, 25, 2)) * 0.3).astype(np.float32)
+    x[-1, ..., 1] = 0.0
+    return x, rng.integers(0, 60, n)
+
+
+def rel_err(p, q):
+    """max |p - q| / max |q|."""
+    den = q.float().abs().max().clamp_min(1e-30)
+    return ((p.float() - q.float()).abs().max() / den).item()
+
+
+def max_abs_err(ps, qs):
+    return max((p.float() - q.float()).abs().max().item()
+               for p, q in zip(ps, qs))
+
+
+def phase_radar_kernel(device):
+    """Kernels #6 and #7 against their plain versions at the trainer's
+    shape; returns the kernels line's entries (lambda = 5e-4) and that
+    radar return for the STFT phase."""
+    x, _ = spec_clips(SPEC_BATCH, SEED)
+    e, src, dst, c, t_out = radar.spline_inputs(
+        torch.from_numpy(x).to(device), SPEC_UP)
+    loc = torch.tensor([0.1, -0.2, 0.3], device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    gre = torch.randn(SPEC_BATCH, t_out, generator=g, device=device)
+    gim = torch.randn(SPEC_BATCH, t_out, generator=g, device=device)
+    totals, signal = {}, None
+    for lam_v in LAMBDAS:
+        args = (e, src, dst, c, loc, torch.tensor(lam_v, device=device))
+        out = radar.spline_radar(*args, t_out)
+        got = radar.spline_radar_backward(*args, gre, gim, t_out)
+        again = radar.spline_radar_backward(*args, gre, gim, t_out)
+        torch.cuda.synchronize()
+        bit_identical = all(torch.equal(p, q) for p, q in zip(got, again))
+        want = radar.spline_radar_reference(*args, t_out)
+        want_bwd = radar.spline_radar_backward_reference(*args, gre, gim,
+                                                         t_out)
+        fwd_err = dict(zip(("re", "im"),
+                           (rel_err(p, q) for p, q in zip(out, want))))
+        bwd_err = dict(zip(("dsrc", "ddst", "dc", "dloc", "dlambda"),
+                           (rel_err(p, q) for p, q in zip(got, want_bwd))))
+        no_nan = not any(torch.isnan(p).any().item() for p in got)
+        entries = {
+            "radar_fwd": {
+                "ms": cuda_ms(lambda: radar.spline_radar(*args, t_out)),
+                "plain_ms": cuda_ms(
+                    lambda: radar.spline_radar_reference(*args, t_out), 5, 1),
+                "max_abs_err": max_abs_err(out, want),
+            },
+            "radar_bwd": {
+                "ms": cuda_ms(lambda: radar.spline_radar_backward(
+                    *args, gre, gim, t_out)),
+                "plain_ms": cuda_ms(
+                    lambda: radar.spline_radar_backward_reference(
+                        *args, gre, gim, t_out), 5, 1),
+                "max_abs_err": max_abs_err(got, want_bwd),
+            },
+        }
+        emit(
+            "radar_kernel", lam=lam_v, n=SPEC_BATCH, t_out=t_out,
+            tiles=e.shape[0], rel_err=fwd_err, bwd_rel_err=bwd_err,
+            rel_tol=RADAR_TOL[lam_v], bit_identical=bit_identical,
+            dlambda=got[4].item(), **{
+                f"{k}_{m}": v[m] for k, v in entries.items() for m in v},
+        )
+        check(bit_identical, f"radar_bwd repeats differ at lambda {lam_v}")
+        check(no_nan, f"radar_bwd gave NaN at lambda {lam_v}")
+        fwd_tol, bwd_tol = RADAR_TOL[lam_v]
+        check(max(fwd_err.values()) <= fwd_tol,
+              f"radar_fwd disagrees at lambda {lam_v}: {fwd_err}")
+        check(max(bwd_err.values()) <= bwd_tol,
+              f"radar_bwd disagrees at lambda {lam_v}: {bwd_err}")
+        if lam_v == LAMBDAS[0]:
+            totals, signal = entries, out
+        del got, again, want, want_bwd
+    torch.cuda.empty_cache()
+    return totals, signal
+
+
+def phase_stft_kernel(device, radar_re, radar_im):
+    """Kernels #10 and #11 against their plain versions at the trainer's
+    shape, on seeded normal signals (as the JAX package's STFT tests); and
+    kernel #10 on the radar return, compared as magnitudes."""
+    cos, sin = (torch.from_numpy(b).to(device) for b in stft.stft_basis(256))
+    hop, n, t = 16, radar_re.shape[0], radar_re.shape[1]
+    frames = t // hop + 1
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    re, im = (torch.randn(n, t, generator=gen, device=device)
+              for _ in range(2))
+    g = torch.randn(n, 256, frames, generator=gen, device=device)
+    out = stft_logmag.stft_logmag(re, im, hop, cos, sin)
+    got = stft_logmag.stft_logmag_backward(re, im, hop, cos, sin, g)
+    again = stft_logmag.stft_logmag_backward(re, im, hop, cos, sin, g)
+    torch.cuda.synchronize()
+    bit_identical = all(torch.equal(p, q) for p, q in zip(got, again))
+    want = stft_logmag.stft_logmag_reference(re, im, hop, cos, sin)
+    want_bwd = stft_logmag.stft_logmag_backward_reference(re, im, hop, cos,
+                                                          sin, g)
+    abs_err = max_abs_err([out], [want])
+    bwd_err = dict(zip(("dre", "dim"),
+                       (rel_err(p, q) for p, q in zip(got, want_bwd))))
+    # the radar return's spectrum spans many decades: log|S| of its
+    # smallest bins is ill-conditioned in f32 for any two summation orders,
+    # |S| + eps = exp(out) is not
+    radar_mag_err = rel_err(
+        stft_logmag.stft_logmag(radar_re, radar_im, hop, cos, sin).exp(),
+        stft_logmag.stft_logmag_reference(radar_re, radar_im, hop, cos,
+                                          sin).exp())
+    entries = {
+        "stft_fwd": {
+            "ms": cuda_ms(lambda: stft_logmag.stft_logmag(
+                re, im, hop, cos, sin)),
+            "plain_ms": cuda_ms(lambda: stft_logmag.stft_logmag_reference(
+                re, im, hop, cos, sin)),
+            "max_abs_err": abs_err,
+        },
+        "stft_bwd": {
+            "ms": cuda_ms(lambda: stft_logmag.stft_logmag_backward(
+                re, im, hop, cos, sin, g)),
+            "plain_ms": cuda_ms(
+                lambda: stft_logmag.stft_logmag_backward_reference(
+                    re, im, hop, cos, sin, g)),
+            "max_abs_err": max_abs_err(got, want_bwd),
+        },
+    }
+    emit(
+        "stft_kernel", n=n, t=t, frames=frames, max_abs_err=abs_err,
+        atol=STFT_ATOL, bwd_rel_err=bwd_err, bwd_rel_tol=STFT_GRAD_TOL,
+        bit_identical=bit_identical, radar_magnitude_rel_err=radar_mag_err,
+        radar_magnitude_rel_tol=STFT_MAG_TOL, **{
+            f"{k}_{m}": v[m] for k, v in entries.items() for m in v},
+    )
+    check(bit_identical, "stft_bwd repeats differ")
+    check(abs_err <= STFT_ATOL, f"stft_fwd disagrees by {abs_err}")
+    check(max(bwd_err.values()) <= STFT_GRAD_TOL,
+          f"stft_bwd disagrees: {bwd_err}")
+    check(radar_mag_err <= STFT_MAG_TOL,
+          f"stft_fwd magnitudes of the radar return differ by "
+          f"{radar_mag_err}")
+    return entries
+
+
+def phase_spec_train(device):
+    """The full-width spectrogram model's train steps, kernels and plain
+    routes in turns, radar frozen and then unfrozen; a profile of the
+    unfrozen kernel steps."""
+    x, labels = spec_clips(SPEC_BATCH, SEED + 4)
+    xs = torch.from_numpy(x).to(device)
+    ys = torch.nn.functional.one_hot(torch.from_numpy(labels), 60)
+    ys = ys.float().to(device)
+    models = {}
+    for route in ("kernels", "plain"):
+        model = spectrogram.Model(
+            num_classes=60, num_pad_frames=SPEC_UP,
+            use_pallas=route == "kernels", use_pallas_stft=route == "kernels",
+            device=device, generator=torch.Generator().manual_seed(SEED),
+        )
+        models[route] = (model, RadarOptimizer(model.named_parameters(),
+                                               SPEC_LR))
+    runs = {}
+    for phase, unfrozen in (("frozen", False), ("unfrozen", True)):
+        runs = {}
+        for route, (model, opt) in models.items():
+            step = make_radar_train_step(model, opt, SPEC_BATCH, unfrozen,
+                                         unfrozen)
+            runs[route] = lambda step=step: step(xs, ys)["loss"].item()
+        losses = {route: [run() for _ in range(TRAIN_WARMUP)]
+                  for route, run in runs.items()}
+        times = {route: [] for route in runs}
+        reset_launches()
+        for i in range(TRAIN_STEPS):  # in turns, the order reversed
+            for route in ("kernels", "plain")[:: 1 if i % 2 == 0 else -1]:
+                start = time.perf_counter()
+                losses[route].append(runs[route]())
+                times[route].append(time.perf_counter() - start)
+        launches = read_launches(SPEC_KERNELS)
+        backward = TRAIN_STEPS if unfrozen else 0
+        predicted = {"radar_fwd": TRAIN_STEPS, "radar_bwd": backward,
+                     "stft_fwd": TRAIN_STEPS, "stft_bwd": backward}
+        for route, samples in times.items():
+            torch.cuda.reset_peak_memory_stats()
+            runs[route]()
+            loss = losses[route]
+            med = statistics.median(samples)
+            falling = bool(np.mean(loss[-5:]) < np.mean(loss[:5]))
+            emit(
+                "spec_train", radar=phase, route=route, batch=SPEC_BATCH,
+                t=SPEC_T * SPEC_UP, steps=len(samples),
+                median_step_ms=1e3 * med, min_step_ms=1e3 * min(samples),
+                max_step_ms=1e3 * max(samples), clips_per_s=SPEC_BATCH / med,
+                peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
+                loss_first=loss[0], loss_last=loss[-1], loss_falling=falling,
+                radar_lambda=models[route][0].virtual_radar.radar_lambda.item(),
+                launches_timed=launches if route == "kernels" else None,
+            )
+            check(all(np.isfinite(loss)), f"non-finite {route} loss")
+            # unfrozen, each step moves lambda by 1% and with it the phase
+            # of every return by ~100 rad: the input itself changes, and
+            # the loss need not fall
+            check(unfrozen or falling,
+                  f"{route} frozen-phase loss did not fall: {loss}")
+        check(launches == predicted,
+              f"{phase} steps launched {launches}, predicted {predicted}")
+    emit("spec_profile", radar="unfrozen", route="kernels", batch=SPEC_BATCH,
+         steps=PROFILE_STEPS,
+         **device_profile(runs["kernels"], PROFILE_STEPS))
+    del models, runs
+    torch.cuda.empty_cache()
+
+
+def phase_spec_cli(device):
+    """The spectrogram trainer CLI on synthetic clips, then resumed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (part, n) in enumerate(SPEC_CLI_CLIPS.items()):
+            x, labels = spec_clips(n, SEED + 5 + i)
+            np.save(os.path.join(tmp, f"{part}_data_joint.npy"), x)
+            with open(os.path.join(tmp, f"{part}_label.pkl"), "wb") as f:
+                pickle.dump(([f"clip{j}" for j in range(n)],
+                             [int(v) for v in labels]), f)
+        argv = [
+            "--data-path", os.path.join(tmp, "{}_data_joint.npy"),
+            "--label-path", os.path.join(tmp, "{}_label.pkl"),
+            "--log-dir", os.path.join(tmp, "logs"),
+            "--batch-size", str(SPEC_BATCH), "--num-epochs", "2",
+            "--save-freq", "1", "--lambda-train-epoch", "0",
+            "--loc-train-epoch", "0",
+        ]
+        steps = SPEC_CLI_CLIPS["train"] // SPEC_BATCH
+        evals = -(-SPEC_CLI_CLIPS["val"] // SPEC_BATCH)
+        # each train step and eval batch: one radar and one STFT forward;
+        # each train step after epoch 0 (lambda and loc unfrozen): one of
+        # each backward; epoch 0: none
+        fwd = steps + evals
+        first_predicted = {"radar_fwd": 2 * fwd, "radar_bwd": steps,
+                           "stft_fwd": 2 * fwd, "stft_bwd": steps}
+        predicted = {"radar_fwd": 3 * fwd, "radar_bwd": 2 * steps,
+                     "stft_fwd": 3 * fwd, "stft_bwd": 2 * steps}
+        # the main path: the counts cover exactly the two runs
+        reset_launches()
+        history = main_spectrogram.main(argv)
+        first = read_launches(SPEC_KERNELS)
+        history += main_spectrogram.main(
+            argv[:9] + ["3"] + argv[10:] + ["--resume"])
+        launches = read_launches(SPEC_KERNELS)
+        (run,) = os.listdir(os.path.join(tmp, "logs"))
+        ckpt_dir = os.path.join(tmp, "logs", run, "checkpoints")
+        checkpoints = sorted(int(d) for d in os.listdir(ckpt_dir))
+    emit(
+        "spec_cli", clips=SPEC_CLI_CLIPS, batch=SPEC_BATCH,
+        t=SPEC_T, history=history, checkpoints=checkpoints,
+        launches=launches, launches_predicted=predicted,
+        first_run_launches=first, first_run_predicted=first_predicted,
+    )
+    check(first == first_predicted and launches == predicted,
+          f"spec cli launched {first} then {launches}, predicted "
+          f"{first_predicted} then {predicted}")
+    check([h["epoch"] for h in history] == [0, 1, 2],
+          f"epochs run {[h['epoch'] for h in history]}, not [0, 1, 2]")
+    check(checkpoints == [0, 1, 2], f"checkpoints {checkpoints}")
+    lams = [h["radar_lambda"] for h in history]
+    check(lams[0] == float(np.float32(5e-4)) and lams[1] != lams[0]
+          and lams[2] != lams[1], f"radar_lambda by epoch {lams}")
+    check(all(np.isfinite(v) for h in history for v in h.values()),
+          f"non-finite spec cli metrics: {history}")
+    return launches
+
+
 def main():
     phase_env()
     device = torch.device("cuda", 0)
@@ -612,6 +968,13 @@ def main():
     phase_latency(device, state, requests[64])
     phase_train(device)
     launches = phase_cli(device)
+    torch.cuda.empty_cache()
+    tf32_off()
+    spec_totals, (re, im) = phase_radar_kernel(device)
+    spec_totals.update(phase_stft_kernel(device, re, im))
+    del re, im
+    phase_spec_train(device)
+    spec_launches = phase_spec_cli(device)
     print(json.dumps({"kernels": [
         {"name": "sgcn_fwd", "route": "cuda", "source": SGCN_SOURCE,
          "replaces": SGCN_REPLACES, "launches": launches["sgcn_fwd"],
@@ -619,6 +982,12 @@ def main():
         {"name": "sgcn_bwd", "route": "cuda", "source": SGCN_BWD_SOURCE,
          "replaces": SGCN_BWD_REPLACES, "launches": launches["sgcn_bwd"],
          **bwd_totals},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu",
+         "replaces": KERNEL_REPLACES[name],
+         "launches": spec_launches[name], **spec_totals[name]}
+        for name in SPEC_KERNELS
     ]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

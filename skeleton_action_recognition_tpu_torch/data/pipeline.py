@@ -1,17 +1,19 @@
-"""Host input pipeline: TFRecord shards into batches.
+"""Host input pipelines: TFRecord shards, or ``.npy`` arrays, into batches.
 
 Counterpart of ``skeleton_action_recognition_tpu/data/pipeline.py``'s
-``stream_transform`` and the in-RAM mode of ``TFRecordDataset`` as the GNN
-trainer uses it: every shard decoded once into host memory, a global
-permutation per epoch from a seeded numpy generator, ``drop_remainder``,
-a per-batch transform and a prefetch thread. The same seed gives the same
-batches as the JAX dataset. Its ``stream=True`` (larger than RAM) and
-multi-host modes are not ported yet.
+``stream_transform``, the in-RAM mode of ``TFRecordDataset`` as the GNN
+trainer uses it (every shard decoded once into host memory, a global
+permutation per epoch from a seeded numpy generator, ``drop_remainder``, a
+per-batch transform and a prefetch thread) and ``NumpyDataset``, the
+spectrogram trainer's ``.npy`` + pickled-label input. The same seed gives
+the same batches as the JAX datasets. ``TFRecordDataset``'s ``stream=True``
+(larger than RAM) and multi-host modes are not ported yet.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import queue
 import threading
 from concurrent import futures
@@ -161,3 +163,51 @@ class TFRecordDataset:
             # a consumer that stops early (or is closed) ends the thread
             stop.set()
             thread.join()
+
+
+class NumpyDataset:
+    """Batches of a ``(N, 3, T, V, M)`` ``.npy`` array (memory-mapped) and
+    the labels of a pickled ``(names, labels)`` pair, the reference
+    spectrogram trainer's files: a permutation per epoch from a seeded
+    numpy generator when ``shuffle``, ``drop_remainder``, and each batch's
+    indices sorted, as the JAX dataset does. Unpickles ``label_path``:
+    give it only a file of the dataset's own making."""
+
+    def __init__(
+        self,
+        data_path: str,
+        label_path: str,
+        batch_size: int,
+        num_classes: int = 60,
+        shuffle: bool = False,
+        drop_remainder: bool = False,
+        seed: int = 0,
+    ):
+        with open(label_path, "rb") as f:
+            _, labels = pickle.load(f, encoding="latin1")
+        self.data = np.load(data_path, mmap_mode="r")
+        self.labels = np.asarray(labels, np.int64)
+        self.batch_size = batch_size
+        self.num_classes = num_classes
+        self.shuffle = shuffle
+        self.drop_remainder = drop_remainder
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        if self.drop_remainder:
+            return len(self.labels) // self.batch_size
+        return (len(self.labels) + self.batch_size - 1) // self.batch_size
+
+    def batches(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield ``(float32 features, one_hot_labels)`` batches."""
+        order = np.arange(len(self.labels))
+        if self.shuffle:
+            order = self._rng.permutation(order)
+        if self.drop_remainder:
+            order = order[: len(order) - len(order) % self.batch_size]
+        for i in range(0, len(order), self.batch_size):
+            idx = np.sort(order[i: i + self.batch_size])
+            yield (
+                np.asarray(self.data[idx], np.float32),
+                _one_hot(self.labels[idx], self.num_classes),
+            )

@@ -1,5 +1,5 @@
-"""NTU RGB+D 25-joint skeleton graph: the spatial-partition adjacency and
-the bone pairs.
+"""NTU RGB+D 25-joint skeleton graph: the spatial-partition adjacency, the
+bone pairs and the VirtualRadar edge list.
 
 Counterpart of ``skeleton_action_recognition_tpu/graphs/ntu_rgb_d.py`` and
 ``graphs/tools.py`` with the ``'spatial'`` labeling only, the one ST-GCN
@@ -31,6 +31,15 @@ BONE_PAIRS = (
     (16, 15), (17, 1), (18, 17), (19, 18), (20, 19), (22, 23), (21, 21),
     (23, 8), (24, 25), (25, 12),
 )
+
+# the VirtualRadar layer's pruned 0-indexed (src, dst) bone list: the 24
+# bones whose returns the spectrogram model sums
+RADAR_EDGES = [
+    (0, 1), (1, 20), (20, 2), (2, 3), (20, 4), (4, 5), (5, 6), (6, 7),
+    (7, 21), (7, 22), (20, 8), (8, 9), (9, 10), (10, 11), (11, 23),
+    (11, 24), (0, 16), (0, 12), (12, 13), (13, 14), (14, 15), (16, 17),
+    (17, 18), (18, 19),
+]
 
 
 def _normalized(edges) -> np.ndarray:

@@ -8,7 +8,10 @@ only renames leaves and transposes layouts:
 * a Conv ``kernel`` in HWIO is a Conv2d ``weight`` in OIHW;
 * BatchNorm ``scale`` is ``weight``; ``batch_stats`` ``mean``/``var`` are
   ``running_mean``/``running_var``;
-* the trainable adjacency ``params['adjacency_matrix']`` keeps its name.
+* every other leaf keeps its name and shape: the trainable adjacency
+  ``params['adjacency_matrix']``, and the spectrogram model's scalar
+  ``radar_lambda``, ``(3,)`` ``radar_loc`` and trainable STFT bases
+  ``stft_cos``/``stft_sin``.
 """
 
 from __future__ import annotations
@@ -69,5 +72,5 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
         node = variables[collection]
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = arr.copy()  # C order; a 0-d leaf stays 0-d
     return {k: v for k, v in variables.items() if v}

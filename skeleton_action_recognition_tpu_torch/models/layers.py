@@ -41,17 +41,18 @@ def init_layer(layer, generator=None):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the last axis with the JAX package's Keras settings
-    (``batch_norm``: epsilon 1e-3, momentum 0.99), as flax's
-    ``nn.BatchNorm``:
+    """BatchNorm over the last axis, as flax's ``nn.BatchNorm``, by default
+    with the JAX package's Keras settings (``batch_norm``: ``epsilon``
+    1e-3, ``momentum`` 0.99; the ResNet passes torch's 1e-5 and 0.9):
 
-    * eval: ``(x - running_mean) * rsqrt(running_var + 1e-3) * weight +
+    * eval: ``(x - running_mean) * rsqrt(running_var + epsilon) * weight +
       bias``;
     * train: the same with the batch's statistics, taken in float32 over
       every axis but the last, ``var = max(0, E[x^2] - E[x]^2)`` (biased),
-      and the running statistics updated as ``0.99 * running + 0.01 *
-      batch``. ``torch.nn.functional.batch_norm`` differs on both: its
-      momentum weighs the batch, and its running variance is unbiased.
+      and the running statistics updated as ``momentum * running + (1 -
+      momentum) * batch``. ``torch.nn.functional.batch_norm`` differs on
+      both: its momentum weighs the batch, and its running variance is
+      unbiased.
 
     ``weight``/``bias`` are flax's ``scale``/``bias``, ``running_mean``/
     ``running_var`` its ``batch_stats`` ``mean``/``var``. The normalize runs
@@ -61,9 +62,12 @@ class BatchNorm(nn.Module):
     :func:`frozen_stats`).
     """
 
-    def __init__(self, features: int, dtype=None):
+    def __init__(self, features: int, dtype=None, epsilon: float = EPSILON,
+                 momentum: float = MOMENTUM):
         super().__init__()
         self.dtype = dtype
+        self.epsilon = epsilon
+        self.momentum = momentum
         self.update_stats = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -78,15 +82,16 @@ class BatchNorm(nn.Module):
             var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
             if self.update_stats:
                 with torch.no_grad():
+                    m = self.momentum
                     self.running_mean.copy_(
-                        MOMENTUM * self.running_mean + (1 - MOMENTUM) * mean
+                        m * self.running_mean + (1 - m) * mean
                     )
                     self.running_var.copy_(
-                        MOMENTUM * self.running_var + (1 - MOMENTUM) * var
+                        m * self.running_var + (1 - m) * var
                     )
         else:
             mean, var = self.running_mean, self.running_var
-        scale = torch.rsqrt(var + EPSILON) * self.weight
+        scale = torch.rsqrt(var + self.epsilon) * self.weight
         y = (xf - mean) * scale + self.bias
         return y if self.dtype is None else y.to(self.dtype)
 

@@ -73,3 +73,44 @@ def load_library(source: str) -> ctypes.CDLL:
         lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib)
     return ctypes.CDLL(str(lib))
+
+
+@functools.cache
+def kernel_function(source: str, name: str, n_pointers: int, n_ints: int,
+                    n_floats: int = 0):
+    """The C entry point ``name`` of ``csrc/<source>``: it takes
+    ``n_pointers`` device pointers, ``n_ints`` ints, ``n_floats`` floats and
+    the CUDA stream, launches its kernels on that stream and returns the
+    ``cudaError_t`` of the launch."""
+    fn = getattr(load_library(source), name)
+    fn.argtypes = (
+        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+        + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# shared memory one block may use on an H100 (sm_90)
+MAX_SMEM_BYTES = 232448
+
+
+def check_cuda(kernel: str, **tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor: ``kernel``'s
+    kernels take nothing else."""
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"no {kernel} kernel for device {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def launch(fn, name: str, device, *args) -> None:
+    """Call ``fn(*args, stream)`` on ``device``'s current stream; raise if
+    the launch was refused."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")

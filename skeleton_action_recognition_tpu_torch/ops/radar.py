@@ -1,0 +1,437 @@
+"""Spline-factorized radar return: the CUDA kernels and their plain versions.
+
+Counterpart of the spline path of
+``skeleton_action_recognition_tpu/ops/pallas/radar.py``
+(``radar_return_spline`` and its ``_spline_kernel_op``). The skeleton's
+joints are smoothed and upsampled ``num_pad_frames``x by one not-a-knot
+spline (:func:`..resample.spline_tile_plan`), so every padded time row of a
+``tile``-row block evaluates one cubic segment: the kernel's inputs are
+the per-tile segment coefficients of every edge endpoint ``src``/``dst
+(N, num_tiles, 3 * EM, 4 * NS)`` and the per-row one-hot monomials ``e
+(num_tiles, 4 * NS, tile)``. ``csrc/radar_fwd.cu`` (kernel #6, replacing
+``_radar_spline_kernel``) evaluates the endpoints and sums every
+edge-body pair's ellipsoid-RCS return ``amp * exp(i 4 pi d / lambda)``;
+``csrc/radar_bwd.cu`` (kernel #7, replacing ``_radar_spline_bwd_kernel``)
+is its VJP with respect to ``src``, ``dst``, ``c``, ``loc`` and
+``lambda``, the monomials being a constant. :class:`SplineRadar` ties
+them into an autograd Function.
+
+The coefficient contraction, the segment gather and the bone lengths
+(:func:`bone_length_mean_sq_spline`) are plain torch here, as they are
+plain autodiff in JAX.
+
+Everything is float32. ``loc`` and ``lambda`` stay on the device (the
+kernels read them there, so a step never waits for the host).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
+    RADAR_EDGES,
+)
+from skeleton_action_recognition_tpu_torch.ops.build import (
+    MAX_SMEM_BYTES,
+    check_cuda,
+    kernel_function,
+    launch,
+)
+from skeleton_action_recognition_tpu_torch.ops.resample import (
+    spline_tile_plan,
+)
+from skeleton_action_recognition_tpu_torch.ops.virtual_radar import (
+    gather_edges,
+)
+
+TILE = 512
+_FOUR_PI = 4.0 * math.pi
+# the kernels' block size (csrc/radar_fwd.cu, radar_bwd.cu), with which
+# the wrapper sizes their shared memory before launching
+_THREADS = 256
+# tiles a plain version evaluates at once: bounds its temporaries to a few
+# hundred MB at the production shape (N = 16, 147 tiles of 512 rows)
+_PLAIN_TILES = 16
+
+
+def _scatter_fwd(lam, loc, s, d, c):
+    """The JAX kernel's ``_scatter_fwd_core``: endpoint coordinates ``s``,
+    ``d`` (tuples of x, y, z tensors), ``c`` broadcast against them ->
+    ``(amp, phase)``."""
+    lx, ly, lz = loc[0], loc[1], loc[2]
+    sx, sy, sz = s
+    dx, dy, dz = d
+    rx, ry, rz = sx - lx, sy - ly, sz - lz
+    dist = torch.sqrt(rx * rx + ry * ry + rz * rz)
+    ax, ay, az = lx - (sx + dx) * 0.5, ly - (sy + dy) * 0.5, lz - (sz + dz) * 0.5
+    bx, by, bz = dx - sx, dy - sy, dz - sz
+    dot = ax * bx + ay * by + az * bz
+    na = torch.sqrt(ax * ax + ay * ay + az * az)
+    nb = torch.sqrt(bx * bx + by * by + bz * bz)
+    ct = dot / (na * nb + 1e-6)
+    ct2 = ct * ct
+    denom = torch.abs((1.0 - ct2) + c * ct2)
+    amp = torch.sqrt(math.pi * c) / denom
+    phase = (_FOUR_PI / lam) * dist
+    return amp, phase
+
+
+def _inv(v):
+    return torch.where(v > 0, 1.0 / torch.where(v > 0, v, 1.0), 0.0)
+
+
+def _scatter_bwd(lam, loc, s, d, c, gre, gim):
+    """The JAX kernel's ``_scatter_bwd_core``: the cotangents
+    ``(g_s, g_d, g_c, g_l, g_lam)`` of one batch of pairs from the output
+    cotangent ``(gre, gim)``, with its guards (``sign(u)``, ``amp / 2c`` only
+    where ``c > 0``, zero inverses of zero norms)."""
+    lx, ly, lz = loc[0], loc[1], loc[2]
+    sx, sy, sz = s
+    dx, dy, dz = d
+    k = _FOUR_PI / lam
+    rx, ry, rz = sx - lx, sy - ly, sz - lz
+    dist = torch.sqrt(rx * rx + ry * ry + rz * rz)
+    ax, ay, az = lx - (sx + dx) * 0.5, ly - (sy + dy) * 0.5, lz - (sz + dz) * 0.5
+    bx, by, bz = dx - sx, dy - sy, dz - sz
+    dot = ax * bx + ay * by + az * bz
+    na = torch.sqrt(ax * ax + ay * ay + az * az)
+    nb = torch.sqrt(bx * bx + by * by + bz * bz)
+    den = na * nb + 1e-6
+    ct = dot / den
+    ct2 = ct * ct
+    u = (1.0 - ct2) + c * ct2
+    au = torch.abs(u)
+    amp = torch.sqrt(math.pi * c) / au
+    phase = k * dist
+    cosp, sinp = torch.cos(phase), torch.sin(phase)
+
+    g_amp = gre * cosp + gim * sinp
+    g_phase = amp * (gim * cosp - gre * sinp)
+    g_dist = g_phase * k
+    g_au = -(amp / au) * g_amp
+    g_u = torch.sign(u) * g_au
+    g_ct = g_u * (2.0 * ct * (c - 1.0))
+    g_c = g_u * ct2 + g_amp * torch.where(c > 0, amp / (2.0 * c), 0.0)
+    g_dot = g_ct / den
+    g_den = g_ct * (-ct / den)
+    inv_na, inv_nb, inv_d = _inv(na), _inv(nb), _inv(dist)
+    g_ax = g_dot * bx + g_den * nb * ax * inv_na
+    g_ay = g_dot * by + g_den * nb * ay * inv_na
+    g_az = g_dot * bz + g_den * nb * az * inv_na
+    g_bx = g_dot * ax + g_den * na * bx * inv_nb
+    g_by = g_dot * ay + g_den * na * by * inv_nb
+    g_bz = g_dot * az + g_den * na * bz * inv_nb
+    g_rx, g_ry, g_rz = g_dist * rx * inv_d, g_dist * ry * inv_d, g_dist * rz * inv_d
+    g_s = (g_rx - 0.5 * g_ax - g_bx, g_ry - 0.5 * g_ay - g_by,
+           g_rz - 0.5 * g_az - g_bz)
+    g_d = (-0.5 * g_ax + g_bx, -0.5 * g_ay + g_by, -0.5 * g_az + g_bz)
+    g_l = (-g_rx + g_ax, -g_ry + g_ay, -g_rz + g_az)
+    g_lam = (-k / lam) * (g_phase * dist)
+    return g_s, g_d, g_c, g_l, g_lam
+
+
+def _positions(coef, e):
+    """``coef (N, J, 3 EM, ns4)`` at the rows of ``e (J, ns4, tile)``: the
+    x, y, z coordinates, each ``(N, J, EM, tile)``."""
+    pos = torch.einsum("njfq,jqr->njfr", coef, e)
+    return pos.unflatten(2, (3, -1)).unbind(2)
+
+
+def spline_radar_reference(e, src, dst, c, loc, lam, t_out: int):
+    """Plain PyTorch kernel #6: ``(re, im)``, each ``(N, t_out)``, of the
+    tiles' coefficients ``src``/``dst (N, num_tiles, 3 EM, ns4)`` at the
+    monomials ``e (num_tiles, ns4, tile)``, with ``c (N, EM)``, ``loc
+    (3,)`` and the scalar ``lam``. The direct formulas, a chunk of tiles at
+    a time; the padded rows are computed and cut, as in JAX."""
+    n, num_tiles = src.shape[:2]
+    cb = c[:, None, :, None]
+    re, im = [], []
+    for j0 in range(0, num_tiles, _PLAIN_TILES):
+        j1 = min(num_tiles, j0 + _PLAIN_TILES)
+        ej = e[j0:j1]
+        amp, phase = _scatter_fwd(
+            lam, loc, _positions(src[:, j0:j1], ej),
+            _positions(dst[:, j0:j1], ej), cb,
+        )
+        re.append((amp * torch.cos(phase)).sum(2))
+        im.append((amp * torch.sin(phase)).sum(2))
+    return (torch.cat(re, 1).reshape(n, -1)[:, :t_out],
+            torch.cat(im, 1).reshape(n, -1)[:, :t_out])
+
+
+def spline_radar_backward_reference(e, src, dst, c, loc, lam, gre, gim,
+                                    t_out: int):
+    """Plain PyTorch kernel #7: the cotangents ``(dsrc, ddst, dc, dloc,
+    dlam)`` of :func:`spline_radar_reference` from ``(gre, gim) (N,
+    t_out)``: a transcription of the JAX kernel's ``_scatter_bwd_core`` and
+    the contraction of the per-row cotangents with the monomials. (Autograd
+    through the plain forward gives NaN where ``c = 0``.)"""
+    n, num_tiles, f3, ns4 = src.shape
+    tile = e.shape[2]
+    pad = num_tiles * tile - t_out
+    gre = torch.nn.functional.pad(gre, (0, pad)).reshape(n, num_tiles, tile)
+    gim = torch.nn.functional.pad(gim, (0, pad)).reshape(n, num_tiles, tile)
+    cb = c[:, None, :, None]
+    dsrc, ddst = [], []
+    dc = torch.zeros_like(c)
+    dloc = torch.zeros_like(loc)
+    dlam = torch.zeros_like(lam)
+    for j0 in range(0, num_tiles, _PLAIN_TILES):
+        j1 = min(num_tiles, j0 + _PLAIN_TILES)
+        ej = e[j0:j1]
+        g_s, g_d, g_c, g_l, g_lam = _scatter_bwd(
+            lam, loc, _positions(src[:, j0:j1], ej),
+            _positions(dst[:, j0:j1], ej), cb,
+            gre[:, j0:j1, None], gim[:, j0:j1, None],
+        )
+        for grads, out in ((g_s, dsrc), (g_d, ddst)):
+            rows = torch.stack(grads, 2).flatten(2, 3)  # (N, J, 3 EM, tile)
+            out.append(torch.einsum("njfr,jqr->njfq", rows, ej))
+        dc = dc + g_c.sum((1, 3))
+        dloc = dloc + torch.stack([g.sum() for g in g_l])
+        dlam = dlam + g_lam.sum()
+    return torch.cat(dsrc, 1), torch.cat(ddst, 1), dc, dloc, dlam
+
+
+def _check(e, src, dst, c, loc, lam, t_out):
+    if e.ndim != 3 or src.ndim != 4 or e.shape[1] != src.shape[3] or (
+        e.shape[1] % 4
+    ):
+        raise ValueError(
+            f"e must be (num_tiles, 4 NS, tile) and src (N, num_tiles, 3 EM, "
+            f"4 NS), got {tuple(e.shape)} and {tuple(src.shape)}"
+        )
+    n, num_tiles, f3, ns4 = src.shape
+    if e.shape[0] != num_tiles or f3 % 3:
+        raise ValueError(f"src {tuple(src.shape)} does not fit e "
+                         f"{tuple(e.shape)}")
+    expected = {
+        "e": (e, tuple(e.shape)), "src": (src, tuple(src.shape)),
+        "dst": (dst, tuple(src.shape)), "c": (c, (n, f3 // 3)),
+        "loc": (loc, (3,)), "lam": (lam, ()),
+    }
+    for name, (t, shape) in expected.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != src.device:
+            raise ValueError(f"{name} is on {t.device}, src on {src.device}")
+    if not 0 < t_out <= num_tiles * e.shape[2]:
+        raise ValueError(f"t_out {t_out} outside the {num_tiles} tiles")
+
+
+
+def _forward_smem(ns4, em):
+    return 4 * (2 * 3 * em * ns4 + 2 * em)
+
+
+def _backward_smem(ns4, tile, em):
+    n_out = 6 * ns4 + 1
+    parts = max(1, _THREADS // n_out)
+    return 4 * (2 * 3 * em * ns4 + (ns4 + 7) * (tile + 1)
+                + parts * n_out + 4 * _THREADS)
+
+
+def _check_smem(nbytes):
+    if nbytes > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"the radar kernel would need {nbytes} bytes of shared memory "
+            f"a block, more than the {MAX_SMEM_BYTES} a Hopper block has"
+        )
+
+
+def _forward(e, src, dst, c, loc, lam, t_out):
+    """``(re, im)`` through kernel #6 on CUDA, the plain version on the
+    CPU."""
+    if src.device.type == "cpu":
+        return spline_radar_reference(e, src, dst, c, loc, lam, t_out)
+    check_cuda("radar", e=e, src=src, dst=dst, c=c, loc=loc, lam=lam)
+    n, num_tiles, f3, ns4 = src.shape
+    _check_smem(_forward_smem(ns4, f3 // 3))
+    re = torch.empty((n, t_out), dtype=torch.float32, device=src.device)
+    im = torch.empty_like(re)
+    launch(
+        kernel_function("radar_fwd.cu", "radar_fwd_f32", 8, 6),
+        "radar_fwd", src.device,
+        e.data_ptr(), src.data_ptr(), dst.data_ptr(), c.data_ptr(),
+        loc.data_ptr(), lam.data_ptr(), re.data_ptr(), im.data_ptr(),
+        n, num_tiles, ns4, e.shape[2], f3 // 3, t_out,
+    )
+    spline_radar.launches += 1
+    return re, im
+
+
+def spline_radar_backward(e, src, dst, c, loc, lam, gre, gim, t_out: int):
+    """Backward of :func:`spline_radar` through kernel #7: ``(dsrc, ddst,
+    dc, dloc, dlam)`` as :func:`spline_radar_backward_reference` returns
+    them. A CPU tensor goes to that plain version; a CUDA tensor launches
+    the kernel (counted in ``spline_radar_backward.launches``) or raises.
+    The result is the same bit for bit from launch to launch."""
+    _check(e, src, dst, c, loc, lam, t_out)
+    for name, g in (("gre", gre), ("gim", gim)):
+        if g.dtype != torch.float32 or tuple(g.shape) != (src.shape[0],
+                                                          t_out):
+            raise ValueError(f"{name} must be float32 "
+                             f"{(src.shape[0], t_out)}, got {g.dtype} "
+                             f"{tuple(g.shape)}")
+    if src.device.type == "cpu":
+        return spline_radar_backward_reference(
+            e, src, dst, c, loc, lam, gre, gim, t_out
+        )
+    check_cuda("radar", e=e, src=src, dst=dst, c=c, loc=loc, lam=lam, gre=gre,
+                gim=gim)
+    n, num_tiles, f3, ns4 = src.shape
+    em, tile = f3 // 3, e.shape[2]
+    _check_smem(_backward_smem(ns4, tile, em))
+    dsrc = torch.empty_like(src)
+    ddst = torch.empty_like(dst)
+    dc = torch.empty_like(c)
+    dloc = torch.empty_like(loc)
+    dlam = torch.empty_like(lam)
+    ws_dc = torch.empty(n * num_tiles * em, dtype=torch.float32,
+                        device=src.device)
+    ws_s = torch.empty(n * num_tiles * 4, dtype=torch.float32,
+                       device=src.device)
+    launch(
+        kernel_function("radar_bwd.cu", "radar_bwd_f32", 15, 6),
+        "radar_bwd", src.device,
+        e.data_ptr(), src.data_ptr(), dst.data_ptr(), c.data_ptr(),
+        loc.data_ptr(), lam.data_ptr(), gre.data_ptr(), gim.data_ptr(),
+        dsrc.data_ptr(), ddst.data_ptr(), dc.data_ptr(), dloc.data_ptr(),
+        dlam.data_ptr(), ws_dc.data_ptr(), ws_s.data_ptr(),
+        n, num_tiles, ns4, tile, em, t_out,
+    )
+    spline_radar_backward.launches += 1
+    return dsrc, ddst, dc, dloc, dlam
+
+
+class SplineRadar(torch.autograd.Function):
+    """Kernel #6 forward, kernel #7 backward; the monomials ``e`` get no
+    gradient (a constant, as in the JAX VJP)."""
+
+    @staticmethod
+    def forward(ctx, e, src, dst, c, loc, lam, t_out):
+        ctx.save_for_backward(e, src, dst, c, loc, lam)
+        ctx.t_out = t_out
+        return _forward(e, src, dst, c, loc, lam, t_out)
+
+    @staticmethod
+    def backward(ctx, gre, gim):
+        e, src, dst, c, loc, lam = ctx.saved_tensors
+        grads = spline_radar_backward(
+            e, src, dst, c, loc, lam, gre.contiguous(), gim.contiguous(),
+            ctx.t_out,
+        )
+        return (None, *grads, None)
+
+
+def spline_radar(e, src, dst, c, loc, lam, t_out: int):
+    """The radar return ``(re, im)``, each ``(N, t_out)``, through the CUDA
+    kernels, differentiable in ``src``, ``dst``, ``c``, ``loc`` and
+    ``lam``.
+
+    Same arguments and result as :func:`spline_radar_reference`. ``e``
+    must be the one-hot monomials of :func:`..resample.spline_tile_plan`
+    (the kernels find each row's segment from them). CPU tensors go to the
+    plain versions; CUDA tensors launch kernel #6 (counted in
+    ``spline_radar.launches``) and, in the backward, kernel #7, or raise.
+    """
+    _check(e, src, dst, c, loc, lam, t_out)
+    return SplineRadar.apply(e, src, dst, c, loc, lam, t_out)
+
+
+spline_radar.launches = 0
+spline_radar_backward.launches = 0
+
+
+def bone_length_mean_sq_spline(bcoef, e, t_out: int):
+    """``c = (mean_t |bone|)^2 (N, EM)`` over the padded time axis from the
+    tiles' bone coefficients ``bcoef = ddst - dsrc (N, num_tiles, 3 EM,
+    ns4)``, a chunk of tiles at a time (the padded rows of ``e`` are zero,
+    so they add zero-length bones)."""
+    n, num_tiles = bcoef.shape[:2]
+    total = 0.0
+    for j0 in range(0, num_tiles, _PLAIN_TILES):
+        j1 = min(num_tiles, j0 + _PLAIN_TILES)
+        bx, by, bz = _positions(bcoef[:, j0:j1], e[j0:j1])
+        s = bx * bx + by * by + bz * bz
+        zero = s == 0
+        length = torch.where(zero, 0.0,
+                             torch.sqrt(torch.where(zero, 1.0, s)))
+        total = total + length.sum((1, 3))
+    return (total / t_out) ** 2
+
+
+@functools.lru_cache(maxsize=8)
+def _plan(t_in: int, num_pad_frames: int, tile: int, sigma: float,
+          device: torch.device):
+    """The spline plan's ``(coefficient operator, tile segments,
+    monomials (num_tiles, ns4, tile))`` as tensors on ``device``, kept per
+    shape (constants: never written to)."""
+    cc, tile_seg, ev = spline_tile_plan(t_in, num_pad_frames, tile, sigma)
+    return (
+        torch.from_numpy(cc).to(device),
+        torch.from_numpy(tile_seg.astype(np.int64)).to(device),
+        torch.from_numpy(np.ascontiguousarray(ev.swapaxes(1, 2))).to(device),
+    )
+
+
+def gather_features(x, edges):
+    """``(N, 3, T, V, M)`` -> the edges' endpoints ``src``, ``dst``, each
+    ``(N, T, 3 * E * M)`` laid out as [x | y | z] blocks of E * M."""
+    n, _, t = x.shape[:3]
+    return tuple(a.permute(0, 2, 1, 3, 4).reshape(n, t, -1)
+                 for a in gather_edges(x, edges))
+
+
+def spline_inputs(x, num_pad_frames: int,
+                  edges: Sequence[Tuple[int, int]] = tuple(RADAR_EDGES),
+                  tile: int = TILE, sigma: float = 3.0):
+    """The kernels' inputs for joints ``x (N, 3, T_in, V, M)`` smoothed and
+    upsampled ``num_pad_frames``x: ``(e, src, dst, c, t_out)``, the
+    monomials, the edges' endpoint coefficients per tile, the squared mean
+    bone lengths ``(N, EM)`` and ``t_out = T_in * num_pad_frames``.
+    Differentiable in ``x``: the coefficient contraction, the segment
+    gather and the bone lengths are plain torch, as they are plain
+    autodiff in JAX."""
+    t_in = x.shape[2]
+    t_out = t_in * int(num_pad_frames)
+    cc, tile_seg, e = _plan(t_in, int(num_pad_frames), int(tile),
+                            float(sigma), x.device)
+    num_tiles, ns4, _ = e.shape
+    src, dst = gather_features(x, edges)  # (N, T_in, 3 EM)
+    n, _, f = src.shape
+
+    def tiled(feat):
+        coef = torch.einsum("qt,ntf->nqf", cc, feat)  # (N, nseg * 4, 3 EM)
+        coef = coef.reshape(n, t_in - 1, 4, f)[:, tile_seg]
+        return coef.reshape(n, num_tiles, ns4, f).transpose(2, 3).contiguous()
+
+    tiled_s, tiled_d = tiled(src), tiled(dst)
+    c = bone_length_mean_sq_spline(tiled_d - tiled_s, e, t_out)
+    return e, tiled_s, tiled_d, c.contiguous(), t_out
+
+
+def radar_return_spline(
+    x,
+    num_pad_frames: int,
+    radar_location,
+    wavelength,
+    edges: Sequence[Tuple[int, int]] = tuple(RADAR_EDGES),
+    tile: int = TILE,
+    sigma: float = 3.0,
+):
+    """Radar return ``(re, im)``, each ``(N, T_in * num_pad_frames)``, of
+    joints ``x (N, 3, T_in, V, M)`` smoothed and upsampled
+    ``num_pad_frames``x by the spline, seen from ``radar_location (3,)`` at
+    the scalar ``wavelength``: the JAX package's ``radar_return_spline``.
+    Differentiable in ``x``, the location and the wavelength; the kernel
+    stage is :func:`spline_radar`."""
+    e, src, dst, c, t_out = spline_inputs(x, num_pad_frames, edges, tile,
+                                          sigma)
+    return spline_radar(e, src, dst, c, radar_location, wavelength, t_out)

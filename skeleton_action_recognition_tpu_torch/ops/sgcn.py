@@ -27,13 +27,14 @@ the transpose of the JAX package's flax ``(C_in, K * C_out)`` kernel.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 import torch.nn.functional as F
 
-from skeleton_action_recognition_tpu_torch.ops.build import load_library
+from skeleton_action_recognition_tpu_torch.ops.build import (
+    check_cuda,
+    kernel_function,
+    launch,
+)
 
 K_PARTS = 3
 NUM_JOINTS = 25
@@ -107,51 +108,29 @@ def _check(x, weight, bias, a):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def _check_cuda(**tensors):
-    for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"no sgcn kernel for device {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
 
-
-@functools.cache
 def _kernels(source: str, n_pointers: int, n_ints: int):
     """``{dtype: C function}`` of ``csrc/<source>``'s f32 and bf16 entry
-    points, which take ``n_pointers`` pointers, ``n_ints`` ints and the
-    stream, and return a ``cudaError_t``."""
-    lib = load_library(source)
+    points (``<stem>_f32``, ``<stem>_bf16``)."""
     stem = source.removesuffix(".cu")
-    fns = {}
-    for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        fn = getattr(lib, f"{stem}_{suffix}")
-        fn.argtypes = (
-            [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        fns[dtype] = fn
-    return fns
-
-
-def _launch(fn, name, device, *args):
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    return {
+        dtype: kernel_function(source, f"{stem}_{suffix}", n_pointers, n_ints)
+        for dtype, suffix in ((torch.float32, "f32"),
+                              (torch.bfloat16, "bf16"))
+    }
 
 
 def _forward(x, weight, bias, a):
     """``out`` through the kernel on CUDA, the plain version on the CPU."""
     if x.device.type == "cpu":
         return graph_conv_reference(x, weight, bias, a)
-    _check_cuda(x=x, weight=weight, bias=bias, a=a)
+    check_cuda("sgcn", x=x, weight=weight, bias=bias, a=a)
     nm, t, v, c_in = x.shape
     c_out = weight.shape[0] // K_PARTS
     out = torch.empty((nm, t, v, c_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch(
+    launch(
         _kernels("sgcn_fwd.cu", 5, 3)[x.dtype], "sgcn_fwd", x.device,
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), a.data_ptr(),
         out.data_ptr(), nm * t, c_in, c_out,
@@ -190,7 +169,7 @@ def fused_graph_conv_backward(x, weight, a, g):
         raise ValueError(f"g is on {g.device}, x on {x.device}")
     if x.device.type == "cpu":
         return graph_conv_backward_reference(x, weight, a, g)
-    _check_cuda(x=x, g=g, weight=weight, a=a)
+    check_cuda("sgcn", x=x, g=g, weight=weight, a=a)
     g = g.to(x.dtype)
     nm, t, v, c_in = x.shape
     frames = nm * t
@@ -204,7 +183,7 @@ def fused_graph_conv_backward(x, weight, a, g):
         splits * weight.shape[0] * (c_in + 1), dtype=torch.float32,
         device=x.device,
     )
-    _launch(
+    launch(
         _kernels("sgcn_bwd.cu", 8, 4)[x.dtype], "sgcn_bwd", x.device,
         x.data_ptr(), g.data_ptr(), weight.data_ptr(), a.data_ptr(),
         dx.data_ptr(), dw.data_ptr(), db.data_ptr(), ws.data_ptr(),

@@ -38,6 +38,15 @@ def test_port_imports_with_jax_blocked():
         "import skeleton_action_recognition_tpu_torch.utils.config\n"
         "import skeleton_action_recognition_tpu_torch.utils.confusion\n"
         "import skeleton_action_recognition_tpu_torch.utils.tb_writer\n"
+        "import skeleton_action_recognition_tpu_torch.cli.main_spectrogram\n"
+        "import skeleton_action_recognition_tpu_torch.models.resnet\n"
+        "import skeleton_action_recognition_tpu_torch.models.resnet18\n"
+        "import skeleton_action_recognition_tpu_torch.models.spectrogram\n"
+        "import skeleton_action_recognition_tpu_torch.ops.radar\n"
+        "import skeleton_action_recognition_tpu_torch.ops.resample\n"
+        "import skeleton_action_recognition_tpu_torch.ops.stft\n"
+        "import skeleton_action_recognition_tpu_torch.ops.stft_logmag\n"
+        "import skeleton_action_recognition_tpu_torch.ops.virtual_radar\n"
         "import chip_smoke\n"
     )
     proc = subprocess.run(
