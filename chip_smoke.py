@@ -10,9 +10,10 @@ so the exit code is not 0.
 
 1. ``env``: the card, its power limit, torch and CUDA versions. Without a
    CUDA device the script stops here (it never falls back to the CPU).
-2. ``build``: compiles ``csrc/sgcn_fwd.cu`` and ``csrc/sgcn_bwd.cu`` for
-   ``sm_90a`` from the checkout, one ``nvcc`` each, at once (seconds, and
-   the compiler's register/shared-memory reports).
+2. ``build``: compiles the eight ``csrc/*.cu`` sources (sgcn, radar, stft
+   and tconv, forward and backward) for ``sm_90a`` from the checkout, one
+   ``nvcc`` each, at once (seconds, and the compiler's register and
+   shared-memory reports).
 3. ``kernel``: the CUDA spatial graph-conv kernel against its plain PyTorch
    version at the six (T, C_in, C_out) shapes of the ten ST-GCN blocks, at
    NM=128 (64 clips x 2 bodies), in f32 and bf16: error and CUDA-event
@@ -21,21 +22,34 @@ so the exit code is not 0.
    six shapes, NM=256 (the 128-clip training batch), f32 and bf16: the
    relative error of dx, dW and db, two launches bit for bit, CUDA-event
    times of both.
+   ``kernel_stats``: kernel #2 (the spatial conv with the BatchNorm
+   statistics epilogue) against its plain version at the six shapes,
+   NM=256, f32 and bf16: the errors of out and of the sums, two launches
+   bit for bit, CUDA-event times.
+   ``tconv_kernel``: kernels #4/#5 (the fused temporal chain, forward and
+   backward) against their plain versions at the three stride-1 shapes,
+   NM=256, f32 and bf16, with a positive shift: the error of every
+   output, two launches of each bit for bit, CUDA-event times of kernel,
+   plain version and cuDNN's conv alone.
 5. ``slice``: the full-width NTU-60 ST-GCN (T=300) from seeded random
    weights and BatchNorm statistics, behind ``Predictor(max_batch=64)``.
    Requests of 1, 7 and 64 clips: every row finite and summing to 1, ten
-   kernel launches per request, agreement with the same weights unfused.
+   kernel launches per request, agreement with the same weights unfused;
+   models with the training options ``sgcn_stats`` and ``fused_tconv``
+   answer the 64-clip request as the fused-only model, through the same
+   ten launches.
 6. ``latency``: the 64-clip request, fused and unfused, in f32 and bf16,
    timed in turns on the host clock (the predictor returns numpy, so each
    request ends synchronized).
 7. ``train``: training steps of the full-width ST-GCN at the JAX bench's
-   shape (B=128, T=300, remat off), the spatial conv fused on every block
-   and unfused, timed in turns (20 steps after 3 warm-up, each ending
-   synchronized), in bf16 and in f32 with TF32 off (B=128 if it fits,
-   else 64 or 32): step time, clips/s, peak memory; the loss finite and
-   falling; exactly 10 forward and 10 backward launches a fused step. Then
-   a profiler trace of 3 fused bf16 steps: device time by kernel name and
-   the device's idle share.
+   shape (B=128, T=300, remat off) in four configurations, timed in turns
+   (10 steps after 3 warm-up, each ending synchronized), in bf16 and in
+   f32 with TF32 off (B=128 if it fits, else 64 or 32): unfused, the
+   spatial conv fused on every block, and that with ``sgcn_stats`` or
+   with ``fused_tconv``. Step time, clips/s, peak memory; the loss finite
+   and falling; each step's launches exactly ``STEP_LAUNCHES``. Then
+   profiler traces of 3 bf16 steps, fused and fused_tconv: device time by
+   kernel name and the device's idle share.
 8. ``cli``: ``cli.main_gnn.main`` on a seeded synthetic TFRecord set
    (T=300, 60 classes, 48 training and 16 test clips, written with the
    port's writer), ``--fused-sgcn --fused-sgcn-min-channels 0``, default
@@ -57,7 +71,7 @@ so the exit code is not 0.
     (ResNet-18, 64 filters, 256 x 256 images, 60 classes) at B=16, f32,
     TF32 off, through the kernels and through the plain routes
     (``use_pallas=False, use_pallas_stft=False``), radar frozen and then
-    unfrozen (lambda and loc), timed in turns (20 steps after 3 warm-up,
+    unfrozen (lambda and loc), timed in turns (10 steps after 3 warm-up,
     each ending synchronized): step time, clips/s, peak memory, the loss
     finite (and falling while frozen), exactly 1 + 1 forward launches a
     step and 1 + 1 backward launches a step unfrozen, none frozen. Then a
@@ -70,12 +84,16 @@ so the exit code is not 0.
     finite metrics, and launch counts equal to the prediction.
 
 Then the kernels line (``sgcn_fwd`` ``ms``/``plain_ms``: f32 time of the
-ten spatial convs of one 64-clip request; ``sgcn_bwd``: f32 time of their
-ten backwards at NM=256; ``radar_*``/``stft_*``: one call at 16 clips,
-lambda = 5e-4; ``launches``: the counts of the ``cli`` run for the sgcn
-kernels and of the ``spec_cli`` run for the others, the two training main
-paths, each counted from 0), the card's name and power limit as
-``nvidia-smi`` prints them, and the result line.
+ten spatial convs of one 64-clip request; ``sgcn_bwd`` and
+``sgcn_fwd_stats``: f32 time of the ten blocks' calls at NM=256;
+``tconv_*``: f32 time of the eight stride-1 blocks' calls at NM=256, with
+cuDNN's conv alone as ``library_ms``; ``radar_*``/``stft_*``: one call at
+16 clips, lambda = 5e-4; ``bound_ms``: the least time of the same work at
+the card's published f32 peak and memory rate; ``launches``: the counts of
+the ``cli`` run for ``sgcn_fwd``/``sgcn_bwd``, of the ``spec_cli`` run for
+the radar and STFT kernels and of the ``train`` phase's timed steps for
+the others, each main path counted from 0), the card's name and power
+limit as ``nvidia-smi`` prints them, and the result line.
 """
 
 from __future__ import annotations
@@ -93,6 +111,7 @@ import pickle
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from skeleton_action_recognition_tpu_torch.cli import main_gnn, main_spectrogram
 from skeleton_action_recognition_tpu_torch.data import tfrecord
@@ -111,6 +130,7 @@ from skeleton_action_recognition_tpu_torch.ops import (
     sgcn,
     stft,
     stft_logmag,
+    tconv,
 )
 from skeleton_action_recognition_tpu_torch.serving import Predictor
 from skeleton_action_recognition_tpu_torch.train.optim import (
@@ -142,7 +162,7 @@ KERNEL_REL_TOL = {"f32": 1e-5, "bf16": 2e-2}
 PROB_ATOL = {"f32": 1e-4, "bf16": 5e-2}
 REQUESTS = (1, 7, 64)
 SOURCES = ("sgcn_fwd.cu", "sgcn_bwd.cu", "radar_fwd.cu", "radar_bwd.cu",
-           "stft_fwd.cu", "stft_bwd.cu")
+           "stft_fwd.cu", "stft_bwd.cu", "tconv_fwd.cu", "tconv_bwd.cu")
 SGCN_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_fwd.cu"
 SGCN_REPLACES = "skeleton_action_recognition_tpu/ops/pallas/sgcn.py:90"
 SGCN_BWD_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_bwd.cu"
@@ -156,7 +176,31 @@ TRAIN_NM = 256  # the 128-clip training batch x 2 bodies
 # by a bf16 ulp; dW and db leave in f32.
 BWD_REL_TOL = {"f32": (1e-5, 1e-4, 1e-4), "bf16": (2e-2, 1e-4, 1e-4)}
 TRAIN_BATCH = 128
-TRAIN_STEPS, TRAIN_WARMUP = 20, 3
+# the training configurations timed in turns (remat off, the spatial conv
+# fused on every block or on none), and the kernel launches of one step
+TRAIN_CONFIGS = {
+    "unfused": {},
+    "fused": dict(fused_sgcn=True),
+    "sgcn_stats": dict(fused_sgcn=True, sgcn_stats=True),
+    "fused_tconv": dict(fused_sgcn=True, fused_tconv=True),
+}
+STEP_LAUNCHES = {
+    "unfused": {},
+    "fused": {"sgcn_fwd": 10, "sgcn_bwd": 10},
+    "sgcn_stats": {"sgcn_fwd_stats": 10, "sgcn_bwd": 10},
+    "fused_tconv": {"sgcn_fwd": 10, "sgcn_bwd": 10, "tconv_fwd": 8,
+                    "tconv_bwd": 8},
+}
+TRAIN_KERNELS = ("sgcn_fwd", "sgcn_fwd_stats", "sgcn_bwd", "tconv_fwd",
+                 "tconv_bwd")
+# models served in eval beside the fused-only one: the training options
+EVAL_OPTIONS = {
+    "sgcn_stats+fused_tconv": dict(sgcn_stats=True, fused_tconv=True),
+    "fused_tconv": dict(fused_tconv=True),
+}
+# 10 timed steps: their min and max lie within 0.7% of the median on the
+# ST-GCN configurations, and the loss falls over 13
+TRAIN_STEPS, TRAIN_WARMUP = 10, 3
 PROFILE_STEPS = 3
 CLI_CLIPS = {"train": 48, "val": 16}
 CLI_BATCH = 16
@@ -178,11 +222,46 @@ RADAR_TOL = {5e-4: (2e-3, 1e-2), 10.0: (1e-4, 1e-4)}
 # terms in other orders: 7.3e-7 measured).
 STFT_ATOL, STFT_GRAD_TOL, STFT_MAG_TOL = 5e-4, 2e-3, 1e-5
 SPEC_LR = 1e-4  # the JAX bench's Adam rate
+# kernel #2's sums, |error| / sum |terms| per channel: against the f64 sums
+# of the kernel's own output, f32 sums of 1.9 M rows in other orders; against
+# the plain version's sums, the same in f32, and in bf16 up to two bf16 ulps
+# (each output element may be an ulp away from the plain one)
+STATS_OWN_TOL = 1e-5
+STATS_PLAIN_TOL = {"f32": 1e-5, "bf16": 1e-2}
+# (T, C) of the stride-1 blocks' fused temporal chains, and how many blocks
+# have it
+TCONV_SHAPES = [((300, 64), 4), ((150, 128), 2), ((75, 256), 2)]
+# kernels #4/#5 vs plain, max |diff| / max |plain| of u and g_s: f32 sums of
+# 9 * C products in other orders; bf16 results rounded once from them (a
+# bf16 ulp). dscale, dshift, dW, dbias: f32 sums of 1.9 M rows of the same
+# rounded operands in other orders.
+TCONV_OUT_TOL = {"f32": 1e-5, "bf16": 2e-2}
+TCONV_GRAD_TOL = 1e-4
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): FLOP/s of
+# f32 on the CUDA cores (TF32 off) and of bf16 on the tensor cores, and the
+# device memory's bytes/s. A kernel's bound is the larger of its operations
+# over the peak of their type and its bytes (inputs read once, outputs
+# written once) over the memory rate.
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
+# operations of one (sample, edge-body) pair of the radar kernels, counted
+# from csrc/radar_math.cuh and the spline evaluation around it (one per add,
+# multiply, division, square root, sine or cosine): the forward's six
+# endpoint cubics (48) and the scatter math and sum (56); the backward
+# recomputes those and adds the cotangent chain (94) and the contraction
+# with the tile's monomials (52)
+RADAR_FWD_OPS, RADAR_BWD_OPS = 104, 244
 KERNEL_REPLACES = {
     "radar_fwd": "skeleton_action_recognition_tpu/ops/pallas/radar.py:524",
     "radar_bwd": "skeleton_action_recognition_tpu/ops/pallas/radar.py:555",
     "stft_fwd": "skeleton_action_recognition_tpu/ops/pallas/stft.py:119",
     "stft_bwd": "skeleton_action_recognition_tpu/ops/pallas/stft.py:161",
+    "sgcn_fwd_stats": "skeleton_action_recognition_tpu/ops/pallas/sgcn.py:121",
+    "tconv_fwd": "skeleton_action_recognition_tpu/ops/pallas/tconv.py:138",
+    "tconv_bwd": "skeleton_action_recognition_tpu/ops/pallas/tconv.py:185",
+}
+KERNEL_SOURCES = {
+    "sgcn_fwd_stats": "skeleton_action_recognition_tpu_torch/csrc/sgcn_fwd.cu",
 }
 
 
@@ -215,6 +294,65 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops, n_bytes, dtype):
+    """``(ms, "operations" or "bytes")``: the least time the card could
+    take for work of ``flops`` operations of ``dtype`` moving ``n_bytes``."""
+    ops_s, bytes_s = flops / PEAK_FLOPS[dtype], n_bytes / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), (
+        "operations" if ops_s >= bytes_s else "bytes")
+
+
+class Totals:
+    """A kernels-line entry summed over the calls of one main-path unit
+    (the blocks of a step or request): times, bounds, the largest error.
+    ``bound_by`` is the kind that gives most of the summed bound."""
+
+    def __init__(self, library=False):
+        self.ms = self.plain_ms = self.max_abs_err = 0.0
+        self.library_ms = 0.0 if library else None
+        self.by = {"operations": 0.0, "bytes": 0.0}
+
+    def add(self, times, err, bound_ms, bound_by, calls=1):
+        self.ms += calls * times["ms"]
+        self.plain_ms += calls * times["plain_ms"]
+        if self.library_ms is not None:
+            self.library_ms += calls * times["library_ms"]
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.by[bound_by] += calls * bound_ms
+
+    def entry(self):
+        return {
+            "max_abs_err": self.max_abs_err, "ms": self.ms,
+            "plain_ms": self.plain_ms,
+            "bound_ms": self.by["operations"] + self.by["bytes"],
+            "bound_by": max(self.by, key=self.by.get),
+            "library_ms": self.library_ms,
+        }
+
+
+def sgcn_flops(frames, c_in, c_out, a, backward=False):
+    """Operations of the spatial graph conv over ``frames`` frames: the 1x1
+    conv into 3 C_out channels and the contraction with the adjacency
+    ``a``, a multiply-add a channel for each of its nonzeros (the kernels
+    loop over those alone); the backward does the conv's two products (dx,
+    dW) and the contraction once."""
+    conv = frames * 25 * 2 * c_in * 3 * c_out
+    adjacency = frames * 2 * int(torch.count_nonzero(a)) * c_out
+    return (2 * conv if backward else conv) + adjacency
+
+
+def tconv_flops(rows, c, backward=False):
+    """Operations of the fused temporal chain over ``rows`` (clip, frame,
+    joint) rows: the 9-tap conv (the backward: its input and weight
+    gradients), and the affine, ReLU, bias and statistics around it."""
+    conv = rows * 2 * 9 * c * c
+    return (2 * conv if backward else conv) + rows * c * 8
 
 
 def tf32_off():
@@ -252,7 +390,7 @@ def phase_build():
 def phase_kernel(device):
     a = torch.from_numpy(spatial_adjacency()).to(device)
     g = torch.Generator(device=device).manual_seed(SEED)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    totals = Totals()
     for name, dtype in DTYPES.items():
         for (t, c_in, c_out), blocks in BLOCK_SHAPES:
             x = torch.randn(NM, t, 25, c_in, generator=g, device=device)
@@ -267,10 +405,14 @@ def phase_kernel(device):
             rel_err = abs_err / ref.float().abs().max().item()
             ms = cuda_ms(lambda: sgcn.fused_graph_conv(x, w, b, a))
             plain_ms = cuda_ms(lambda: sgcn.graph_conv_reference(x, w, b, a))
+            bound_ms, bound_by = bound(
+                sgcn_flops(NM * t, c_in, c_out, a), nbytes(x, w, b, a, out),
+                name)
             emit(
                 "kernel", dtype=name, nm=NM, t=t, c_in=c_in, c_out=c_out,
                 max_abs_err=abs_err, rel_err=rel_err,
                 rel_tol=KERNEL_REL_TOL[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
             )
             check(
                 rel_err <= KERNEL_REL_TOL[name],
@@ -278,17 +420,16 @@ def phase_kernel(device):
                 f"rel err {rel_err}",
             )
             if name == "f32":
-                totals["ms"] += blocks * ms
-                totals["plain_ms"] += blocks * plain_ms
-                totals["max_abs_err"] = max(totals["max_abs_err"], abs_err)
+                totals.add({"ms": ms, "plain_ms": plain_ms}, abs_err,
+                           bound_ms, bound_by, blocks)
             del x, out, ref
-    return totals
+    return totals.entry()
 
 
 def phase_kernel_bwd(device):
     a = torch.from_numpy(spatial_adjacency()).to(device)
     g = torch.Generator(device=device).manual_seed(SEED + 1)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    totals = Totals()
     for name, dtype in DTYPES.items():
         for (t, c_in, c_out), blocks in BLOCK_SHAPES:
             x = torch.randn(TRAIN_NM, t, 25, c_in, generator=g, device=device)
@@ -313,6 +454,9 @@ def phase_kernel_bwd(device):
                 e / q.float().abs().max().item()
                 for e, q in zip(abs_err, want)
             ]
+            bound_ms, bound_by = bound(
+                sgcn_flops(TRAIN_NM * t, c_in, c_out, a, backward=True),
+                nbytes(x, w, a, gout, *got), name)
             del got, again, want
             ms = cuda_ms(
                 lambda: sgcn.fused_graph_conv_backward(x, w, a, gout)
@@ -326,7 +470,8 @@ def phase_kernel_bwd(device):
                                                   abs_err)),
                 rel_err=dict(zip(("dx", "dW", "db"), rel_err)),
                 rel_tol=BWD_REL_TOL[name], bit_identical=bit_identical,
-                ms=ms, plain_ms=plain_ms,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by,
             )
             check(bit_identical, f"sgcn_bwd repeats differ at {name} "
                   f"{(t, c_in, c_out)}")
@@ -336,23 +481,206 @@ def phase_kernel_bwd(device):
                 f"rel err {rel_err}",
             )
             if name == "f32":
-                totals["ms"] += blocks * ms
-                totals["plain_ms"] += blocks * plain_ms
-                totals["max_abs_err"] = max(totals["max_abs_err"], *abs_err)
+                totals.add({"ms": ms, "plain_ms": plain_ms}, max(abs_err),
+                           bound_ms, bound_by, blocks)
             del x, gout
             torch.cuda.empty_cache()
-    return totals
+    return totals.entry()
 
 
-def seeded_model(name, fused, state=None):
-    """Full-width NTU-60 ST-GCN computing in ``name`` ("f32" or "bf16").
-    Without ``state``: CONV_INIT weights from the seed, and BatchNorm
-    affines, running statistics and every bias redrawn from it, so that
-    eval-mode BatchNorm and the bias paths do real work."""
+def channel_sum_errors(got, want, out, ref):
+    """Kernel #2/#4's channel sums ``got = (s, ss)``: the largest |error| /
+    sum |terms| against the f64 sums of the kernel's own output ``out``
+    (``own``) and against the plain version's sums ``want`` (``plain``),
+    for ``s`` and ``ss``."""
+    errors = {}
+    for key, src, targets in (("own", out, None), ("plain", ref, want)):
+        of = src.double()
+        exact = (of.sum((0, 1, 2)), (of * of).sum((0, 1, 2)))
+        scale = (of.abs().sum((0, 1, 2)), exact[1])
+        for name, p, q, sc in zip(("s", "ss"), got,
+                                  exact if targets is None else targets,
+                                  scale):
+            errors[f"{name}_{key}"] = ((p.double() - q.double()).abs()
+                                       / sc.clamp_min(1e-30)).max().item()
+    return errors
+
+
+def phase_kernel_stats(device):
+    """Kernel #2 (the spatial conv with the statistics epilogue) against
+    its plain version at the six block shapes, NM=256 (the 128-clip
+    training batch), f32 and bf16: errors of out, s and ss, two launches
+    bit for bit, CUDA-event times."""
+    a = torch.from_numpy(spatial_adjacency()).to(device)
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    totals = Totals()
+    for name, dtype in DTYPES.items():
+        for (t, c_in, c_out), blocks in BLOCK_SHAPES:
+            x = torch.randn(TRAIN_NM, t, 25, c_in, generator=g,
+                            device=device).to(dtype)
+            w = torch.randn(3 * c_out, c_in, generator=g, device=device)
+            w *= (2.0 / c_in) ** 0.5
+            b = 0.1 * torch.randn(3 * c_out, generator=g, device=device)
+            got = sgcn.fused_graph_conv_stats(x, w, b, a)
+            again = sgcn.fused_graph_conv_stats(x, w, b, a)
+            torch.cuda.synchronize()
+            bit_identical = all(torch.equal(p, q) for p, q in zip(got, again))
+            want = sgcn.graph_conv_stats_reference(x, w, b, a)
+            out_rel = rel_err(got[0], want[0])
+            sums = channel_sum_errors(got[1:], want[1:], got[0], want[0])
+            abs_err = max_abs_err(got, want)
+            bound_ms, bound_by = bound(
+                sgcn_flops(TRAIN_NM * t, c_in, c_out, a)
+                + 3 * got[0].numel(), nbytes(x, w, b, a, *got), name)
+            del again, want
+            ms = cuda_ms(lambda: sgcn.fused_graph_conv_stats(x, w, b, a))
+            plain_ms = cuda_ms(
+                lambda: sgcn.graph_conv_stats_reference(x, w, b, a))
+            emit(
+                "kernel_stats", dtype=name, nm=TRAIN_NM, t=t, c_in=c_in,
+                c_out=c_out, out_rel_err=out_rel,
+                out_rel_tol=KERNEL_REL_TOL[name], sum_err=sums,
+                sum_tol={"own": STATS_OWN_TOL,
+                         "plain": STATS_PLAIN_TOL[name]},
+                bit_identical=bit_identical, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+            )
+            where = f"{name} {(t, c_in, c_out)}"
+            check(bit_identical, f"sgcn_fwd_stats repeats differ at {where}")
+            check(out_rel <= KERNEL_REL_TOL[name],
+                  f"sgcn_fwd_stats out disagrees at {where}: {out_rel}")
+            check(all(v <= (STATS_OWN_TOL if k.endswith("own")
+                            else STATS_PLAIN_TOL[name])
+                      for k, v in sums.items()),
+                  f"sgcn_fwd_stats sums disagree at {where}: {sums}")
+            if name == "f32":
+                totals.add({"ms": ms, "plain_ms": plain_ms}, abs_err,
+                           bound_ms, bound_by, blocks)
+            del x, got
+            torch.cuda.empty_cache()
+    return totals.entry()
+
+
+def tconv_inputs(t, c, dtype, device, g):
+    """``s, scale, shift, weight, bias, gue`` of one temporal chain; the
+    shift is positive, so that the padded frames' relu(shift) is far from
+    0."""
+    s = torch.randn(TRAIN_NM, t, 25, c, generator=g, device=device)
+    scale = torch.randn(c, generator=g, device=device)
+    shift = 0.5 + torch.rand(c, generator=g, device=device)
+    w = torch.randn(c, c, 9, 1, generator=g, device=device) / (3 * c**0.5)
+    b = 0.1 * torch.randn(c, generator=g, device=device)
+    gue = torch.randn(TRAIN_NM, t, 25, c, generator=g, device=device)
+    return s.to(dtype), scale, shift, w, b, gue.to(dtype)
+
+
+def phase_tconv_kernel(device):
+    """Kernels #4 and #5 (the fused temporal chain) against their plain
+    versions at the three stride-1 shapes, NM=256, f32 and bf16: the error
+    of every output, two launches of each bit for bit, and CUDA-event
+    times of kernel, plain version and cuDNN's conv alone (forward:
+    ``F.conv2d``; backward: ``convolution_backward`` of its input, weight
+    and bias)."""
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    totals = {"tconv_fwd": Totals(library=True),
+              "tconv_bwd": Totals(library=True)}
+    for name, dtype in DTYPES.items():
+        for (t, c), blocks in TCONV_SHAPES:
+            s, scale, shift, w, b, gue = tconv_inputs(t, c, dtype, device, g)
+            fwd_args, bwd_args = (s, scale, shift, w, b), (s, scale, shift,
+                                                          w, gue)
+            got = tconv.affine_relu_tconv(*fwd_args)
+            got_bwd = tconv.affine_relu_tconv_backward(*bwd_args)
+            again = tconv.affine_relu_tconv(*fwd_args)
+            again_bwd = tconv.affine_relu_tconv_backward(*bwd_args)
+            torch.cuda.synchronize()
+            bit_identical = all(torch.equal(p, q) for p, q in zip(
+                got + got_bwd, again + again_bwd))
+            del again, again_bwd
+            want = tconv.affine_relu_tconv_reference(*fwd_args)
+            want_bwd = tconv.affine_relu_tconv_backward_reference(*bwd_args)
+            u_rel = rel_err(got[0], want[0])
+            sums = channel_sum_errors(got[1:], want[1:], got[0], want[0])
+            bwd_rel = dict(zip(("g_s", "dscale", "dshift", "dW", "dbias"),
+                               (rel_err(p, q) for p, q in zip(got_bwd,
+                                                              want_bwd))))
+            errs = {"tconv_fwd": max_abs_err(got, want),
+                    "tconv_bwd": max_abs_err(got_bwd, want_bwd)}
+            rows = TRAIN_NM * t * 25
+            bounds = {
+                "tconv_fwd": bound(tconv_flops(rows, c),
+                                   nbytes(*fwd_args, *got), name),
+                "tconv_bwd": bound(tconv_flops(rows, c, backward=True),
+                                   nbytes(*bwd_args, *got_bwd), name),
+            }
+            del got, got_bwd, want, want_bwd
+            x = s.permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+            wd, bd = w.to(dtype), b.to(dtype)
+            gy = gue.permute(0, 3, 1, 2)
+            times = {
+                "tconv_fwd": {
+                    "ms": cuda_ms(lambda: tconv.affine_relu_tconv(*fwd_args)),
+                    "plain_ms": cuda_ms(
+                        lambda: tconv.affine_relu_tconv_reference(*fwd_args)),
+                    "library_ms": cuda_ms(
+                        lambda: F.conv2d(x, wd, bd, padding=(4, 0))),
+                },
+                "tconv_bwd": {
+                    "ms": cuda_ms(
+                        lambda: tconv.affine_relu_tconv_backward(*bwd_args)),
+                    "plain_ms": cuda_ms(
+                        lambda: tconv.affine_relu_tconv_backward_reference(
+                            *bwd_args)),
+                    "library_ms": cuda_ms(
+                        lambda: torch.ops.aten.convolution_backward(
+                            gy, x, wd, [c], [1, 1], [4, 0], [1, 1], False,
+                            [0, 0], 1, [True, True, True])),
+                },
+            }
+            emit(
+                "tconv_kernel", dtype=name, nm=TRAIN_NM, t=t, c=c,
+                u_rel_err=u_rel, u_rel_tol=TCONV_OUT_TOL[name],
+                sum_err=sums, sum_tol={"own": STATS_OWN_TOL,
+                                       "plain": STATS_PLAIN_TOL[name]},
+                bwd_rel_err=bwd_rel,
+                bwd_rel_tol={"g_s": TCONV_OUT_TOL[name],
+                             "sums": TCONV_GRAD_TOL},
+                bit_identical=bit_identical, **{
+                    f"{k}_{m}": v for k, d in times.items()
+                    for m, v in d.items()},
+                **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+                **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+            )
+            where = f"{name} {(t, c)}"
+            check(bit_identical, f"tconv repeats differ at {where}")
+            check(u_rel <= TCONV_OUT_TOL[name],
+                  f"tconv_fwd u disagrees at {where}: {u_rel}")
+            check(all(v <= (STATS_OWN_TOL if k.endswith("own")
+                            else STATS_PLAIN_TOL[name])
+                      for k, v in sums.items()),
+                  f"tconv_fwd sums disagree at {where}: {sums}")
+            check(bwd_rel["g_s"] <= TCONV_OUT_TOL[name]
+                  and all(v <= TCONV_GRAD_TOL for k, v in bwd_rel.items()
+                          if k != "g_s"),
+                  f"tconv_bwd disagrees at {where}: {bwd_rel}")
+            if name == "f32":
+                for k, tot in totals.items():
+                    tot.add(times[k], errs[k], *bounds[k], blocks)
+            del s, gue, x, gy
+            torch.cuda.empty_cache()
+    return {k: tot.entry() for k, tot in totals.items()}
+
+
+def seeded_model(name, fused, state=None, **options):
+    """Full-width NTU-60 ST-GCN computing in ``name`` ("f32" or "bf16"),
+    with the model's other ``options``. Without ``state``: CONV_INIT
+    weights from the seed, and BatchNorm affines, running statistics and
+    every bias redrawn from it, so that eval-mode BatchNorm and the bias
+    paths do real work."""
     g = torch.Generator().manual_seed(SEED)
     model = Model(
         num_classes=60, dtype=torch.bfloat16 if name == "bf16" else None,
-        fused_sgcn=fused, fused_sgcn_min_channels=0, generator=g,
+        fused_sgcn=fused, fused_sgcn_min_channels=0, generator=g, **options,
     )
     if state is not None:
         model.load_state_dict(state)
@@ -413,10 +741,26 @@ def phase_slice(device, requests):
             f"{name} fused and unfused probabilities differ by "
             f"{errors[name]}",
         )
+    # the training options leave eval on the fused-only path: the same
+    # probabilities, ten forward launches, no stats or temporal kernel
+    option_errors = {}
+    for label, options in EVAL_OPTIONS.items():
+        pred = Predictor(seeded_model("f32", True, state, **options), 64,
+                         device)
+        reset_launches()
+        got = pred(requests[64])
+        counts = read_launches(TRAIN_KERNELS)
+        option_errors[label] = float(np.abs(got - probs[64]).max())
+        check(counts == {**dict.fromkeys(TRAIN_KERNELS, 0), "sgcn_fwd": 10},
+              f"{label} eval launched {counts}")
+        check(option_errors[label] <= PROB_ATOL["f32"],
+              f"{label} eval differs from fused eval by "
+              f"{option_errors[label]}")
     emit(
         "slice", requests=list(requests), launches=launches,
         launches_per_request=per_request, prob_max_abs_err=errors,
         prob_atol=PROB_ATOL, top_prob_n64=float(probs[64].max(-1).mean()),
+        options_prob_max_abs_err_n64=option_errors,
     )
     return state, launches
 
@@ -451,7 +795,10 @@ def phase_latency(device, state, x, reps=20):
 
 COUNTERS = {
     "sgcn_fwd": sgcn.fused_graph_conv,
+    "sgcn_fwd_stats": sgcn.fused_graph_conv_stats,
     "sgcn_bwd": sgcn.fused_graph_conv_backward,
+    "tconv_fwd": tconv.affine_relu_tconv,
+    "tconv_bwd": tconv.affine_relu_tconv_backward,
     "radar_fwd": radar.spline_radar,
     "radar_bwd": radar.spline_radar_backward,
     "stft_fwd": stft_logmag.stft_logmag,
@@ -469,11 +816,11 @@ def read_launches(names=("sgcn_fwd", "sgcn_bwd")):
 
 
 def train_runs(device, name, batch):
-    """``{fused: step}`` closures training the full-width model, one fused
-    on every block and one unfused, from the same seed, each on its own
-    fixed batch of seeded noise. Each closure keeps, in ``.saved_mb``, the
-    device memory allocated when its last backward began (parameters,
-    optimizer state and the activations saved for the backward)."""
+    """``{config: step}`` closures training the full-width model in each
+    of ``TRAIN_CONFIGS``, from the same seed, each on its own fixed batch
+    of seeded noise. Each closure keeps, in ``.saved_mb``, the device
+    memory allocated when its last backward began (parameters, optimizer
+    state and the activations saved for the backward)."""
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(
         rng.normal(size=(batch, 3, T, 25, 2)).astype(np.float32)
@@ -482,12 +829,12 @@ def train_runs(device, name, batch):
         torch.from_numpy(rng.integers(0, 60, batch)), 60
     ).float().to(device)
     runs = {}
-    for fused in (False, True):
+    for config, options in TRAIN_CONFIGS.items():
         model = Model(
             num_classes=60,
             dtype=torch.bfloat16 if name == "bf16" else None,
-            fused_sgcn=fused, fused_sgcn_min_channels=0, remat=False,
-            device=device, generator=torch.Generator().manual_seed(SEED),
+            fused_sgcn_min_channels=0, remat=False, device=device,
+            generator=torch.Generator().manual_seed(SEED), **options,
         )
         step = make_train_step(model, TFSGD(model.parameters(), 0.01), batch)
 
@@ -502,48 +849,58 @@ def train_runs(device, name, batch):
             out.register_hook(hook)  # returns None: the output stays
 
         model.register_forward_hook(on_logits)
-        runs[fused] = run
+        runs[config] = run
     return runs
 
 
 def time_training(device, name, batch):
+    """The configurations' steps in turns, each step's launches counted
+    and checked against ``STEP_LAUNCHES``; returns the runs and the
+    launches of all timed steps."""
     runs = train_runs(device, name, batch)
-    losses = {fused: [run() for _ in range(TRAIN_WARMUP)]
-              for fused, run in runs.items()}
-    times = {fused: [] for fused in runs}
+    losses = {k: [run() for _ in range(TRAIN_WARMUP)]
+              for k, run in runs.items()}
+    times = {k: [] for k in runs}
+    counted = {k: dict.fromkeys(TRAIN_KERNELS, 0) for k in runs}
+    keys = list(runs)
+    # the main path: the counts cover exactly the timed steps
     reset_launches()
     for i in range(TRAIN_STEPS):  # in turns, the order reversed every other
-        for fused in (False, True) if i % 2 == 0 else (True, False):
+        for k in keys if i % 2 == 0 else keys[::-1]:
+            before = read_launches(TRAIN_KERNELS)
             start = time.perf_counter()
-            losses[fused].append(runs[fused]())
-            times[fused].append(time.perf_counter() - start)
-    launches = read_launches()
-    check(
-        launches == {"sgcn_fwd": 10 * TRAIN_STEPS,
-                     "sgcn_bwd": 10 * TRAIN_STEPS},
-        f"{name} training launched {launches}, not 10 + 10 a step",
-    )
-    for fused, samples in times.items():
+            losses[k].append(runs[k]())
+            times[k].append(time.perf_counter() - start)
+            after = read_launches(TRAIN_KERNELS)
+            for n in TRAIN_KERNELS:
+                counted[k][n] += after[n] - before[n]
+    launches = read_launches(TRAIN_KERNELS)
+    for k, samples in times.items():
+        predicted = {n: TRAIN_STEPS * STEP_LAUNCHES[k].get(n, 0)
+                     for n in TRAIN_KERNELS}
+        check(counted[k] == predicted,
+              f"{name} {k} training launched {counted[k]}, predicted "
+              f"{predicted}")
         torch.cuda.reset_peak_memory_stats()
-        runs[fused]()
-        loss = losses[fused]
+        runs[k]()
+        loss = losses[k]
         med = statistics.median(samples)
         emit(
-            "train", dtype=name, fused_sgcn=fused, batch=batch, t=T,
-            remat=False, steps=len(samples), median_step_ms=1e3 * med,
+            "train", dtype=name, config=k, batch=batch, t=T, remat=False,
+            steps=len(samples), median_step_ms=1e3 * med,
             min_step_ms=1e3 * min(samples), max_step_ms=1e3 * max(samples),
             clips_per_s=batch / med,
             peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
-            backward_start_mem_mb=runs[fused].saved_mb,
+            backward_start_mem_mb=runs[k].saved_mb,
             loss_first=loss[0], loss_last=loss[-1],
-            launches_timed=launches if fused else None,
+            launches_timed=counted[k],
         )
-        check(all(np.isfinite(loss)), f"non-finite {name} training loss")
+        check(all(np.isfinite(loss)), f"non-finite {name} {k} loss")
         check(
             np.mean(loss[-5:]) < np.mean(loss[:5]),
-            f"{name} training loss did not fall: {loss}",
+            f"{name} {k} training loss did not fall: {loss}",
         )
-    return runs
+    return runs, launches
 
 
 def device_profile(run, steps):
@@ -582,15 +939,19 @@ def device_profile(run, steps):
 
 
 def phase_train(device):
-    runs = time_training(device, "bf16", TRAIN_BATCH)
-    emit("profile", dtype="bf16", fused_sgcn=True, batch=TRAIN_BATCH,
-         steps=PROFILE_STEPS, **device_profile(runs[True], PROFILE_STEPS))
+    """bf16 and then f32 training; returns the launches of all timed
+    steps."""
+    runs, launches = time_training(device, "bf16", TRAIN_BATCH)
+    for config in ("fused", "fused_tconv"):
+        emit("profile", dtype="bf16", config=config, batch=TRAIN_BATCH,
+             steps=PROFILE_STEPS,
+             **device_profile(runs[config], PROFILE_STEPS))
     del runs
     torch.cuda.empty_cache()
     for batch in (TRAIN_BATCH, 64, 32):  # f32 at the largest that fits
         try:
-            time_training(device, "f32", batch)
-            return
+            _, f32_launches = time_training(device, "f32", batch)
+            return {n: launches[n] + f32_launches[n] for n in launches}
         except torch.cuda.OutOfMemoryError:
             emit("train", dtype="f32", batch=batch, out_of_memory=True)
         torch.cuda.empty_cache()  # the failed run's tensors are freed now
@@ -728,12 +1089,21 @@ def phase_radar_kernel(device):
         bwd_err = dict(zip(("dsrc", "ddst", "dc", "dloc", "dlambda"),
                            (rel_err(p, q) for p, q in zip(got, want_bwd))))
         no_nan = not any(torch.isnan(p).any().item() for p in got)
+        pairs = SPEC_BATCH * t_out * (src.shape[2] // 3)
+        lam_t = args[5]
+        fwd_bound = bound(RADAR_FWD_OPS * pairs,
+                          nbytes(e, src, dst, c, loc, lam_t, *out), "f32")
+        bwd_bound = bound(RADAR_BWD_OPS * pairs,
+                          nbytes(e, src, dst, c, loc, lam_t, gre, gim, *got),
+                          "f32")
         entries = {
             "radar_fwd": {
                 "ms": cuda_ms(lambda: radar.spline_radar(*args, t_out)),
                 "plain_ms": cuda_ms(
                     lambda: radar.spline_radar_reference(*args, t_out), 5, 1),
                 "max_abs_err": max_abs_err(out, want),
+                "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                "library_ms": None,
             },
             "radar_bwd": {
                 "ms": cuda_ms(lambda: radar.spline_radar_backward(
@@ -742,6 +1112,8 @@ def phase_radar_kernel(device):
                     lambda: radar.spline_radar_backward_reference(
                         *args, gre, gim, t_out), 5, 1),
                 "max_abs_err": max_abs_err(got, want_bwd),
+                "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                "library_ms": None,
             },
         }
         emit(
@@ -790,6 +1162,12 @@ def phase_stft_kernel(device, radar_re, radar_im):
     # the radar return's spectrum spans many decades: log|S| of its
     # smallest bins is ill-conditioned in f32 for any two summation orders,
     # |S| + eps = exp(out) is not
+    # 4 real products a (frame, bin, tap) for each of re and im; the
+    # backward recomputes the spectrum and takes the products' transposes
+    products = n * frames * 256 * 256
+    fwd_bound = bound(8 * products, nbytes(re, im, cos, sin, out), "f32")
+    bwd_bound = bound(16 * products, nbytes(re, im, cos, sin, g, *got),
+                      "f32")
     radar_mag_err = rel_err(
         stft_logmag.stft_logmag(radar_re, radar_im, hop, cos, sin).exp(),
         stft_logmag.stft_logmag_reference(radar_re, radar_im, hop, cos,
@@ -801,6 +1179,8 @@ def phase_stft_kernel(device, radar_re, radar_im):
             "plain_ms": cuda_ms(lambda: stft_logmag.stft_logmag_reference(
                 re, im, hop, cos, sin)),
             "max_abs_err": abs_err,
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+            "library_ms": None,
         },
         "stft_bwd": {
             "ms": cuda_ms(lambda: stft_logmag.stft_logmag_backward(
@@ -809,6 +1189,8 @@ def phase_stft_kernel(device, radar_re, radar_im):
                 lambda: stft_logmag.stft_logmag_backward_reference(
                     re, im, hop, cos, sin, g)),
             "max_abs_err": max_abs_err(got, want_bwd),
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+            "library_ms": None,
         },
     }
     emit(
@@ -959,6 +1341,8 @@ def main():
     phase_build()
     totals = phase_kernel(device)
     bwd_totals = phase_kernel_bwd(device)
+    new_totals = {"sgcn_fwd_stats": phase_kernel_stats(device),
+                  **phase_tconv_kernel(device)}
     rng = np.random.default_rng(SEED)
     requests = {
         n: rng.normal(size=(n, 3, T, 25, 2)).astype(np.float32)
@@ -966,7 +1350,7 @@ def main():
     }
     state, _ = phase_slice(device, requests)
     phase_latency(device, state, requests[64])
-    phase_train(device)
+    train_launches = phase_train(device)
     launches = phase_cli(device)
     torch.cuda.empty_cache()
     tf32_off()
@@ -988,6 +1372,13 @@ def main():
          "replaces": KERNEL_REPLACES[name],
          "launches": spec_launches[name], **spec_totals[name]}
         for name in SPEC_KERNELS
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": KERNEL_SOURCES.get(
+             name, f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu"),
+         "replaces": KERNEL_REPLACES[name],
+         "launches": train_launches[name], **new_totals[name]}
+        for name in ("sgcn_fwd_stats", "tconv_fwd", "tconv_bwd")
     ]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

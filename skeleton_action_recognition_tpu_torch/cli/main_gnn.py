@@ -1,5 +1,5 @@
 """GNN trainer CLI: the port's counterpart of the JAX package's
-``cli/main_gnn.py``, on one CUDA device (the CPU where there is none).
+``cli/main_gnn.py``, on one CUDA device (``main(device="cpu")`` for the CPU).
 
 The same flags with the same defaults, except ``--steps-per-dispatch``
 (a TPU dispatch knob). The flow is the JAX trainer's: TFRecords in, the
@@ -31,6 +31,7 @@ from skeleton_action_recognition_tpu_torch.data.pipeline import (
 from skeleton_action_recognition_tpu_torch.models import stgcn
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     prefetch_to_device,
+    resolve_device,
 )
 from skeleton_action_recognition_tpu_torch.train import (
     checkpoint as ckpt_lib,
@@ -150,17 +151,18 @@ def set_precision(precision: str) -> None:
     torch.backends.cudnn.allow_tf32 = allow
 
 
-def main(argv=None) -> list[dict]:
-    """Train; returns one dict per epoch run: its index, mean train loss,
-    train and test accuracy, and train clips/s."""
+def main(argv=None, *, device="cuda") -> list[dict]:
+    """Train on ``device``; returns one dict per epoch run: its index, mean
+    train loss, train and test accuracy, and train clips/s. Without a CUDA
+    device, ``device="cuda"`` raises before anything is set up."""
     arg = get_parser().parse_args(argv)
     if arg.model != "stgcn":
         raise ValueError(
             f"--model {arg.model!r} is not ported yet: only 'stgcn' is "
             "(the other GNN models are ROADMAP.md Queue 1, item 15)"
         )
+    device = resolve_device(device)
     set_precision(arg.precision)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     print(f"device: {device}")
 
     log_dir = build_log_dir(arg)

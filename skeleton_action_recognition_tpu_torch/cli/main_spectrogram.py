@@ -1,6 +1,6 @@
 """Spectrogram trainer CLI: the port's counterpart of the JAX package's
-``cli/main_spectrogram.py``, on one CUDA device (the CPU where there is
-none).
+``cli/main_spectrogram.py``, on one CUDA device (``main(device="cpu")``
+for the CPU).
 
 The same flags with the same defaults, except ``--steps-per-dispatch`` (a
 TPU dispatch knob). The flow is the JAX trainer's: ``.npy`` clips and
@@ -45,6 +45,7 @@ import torch
 from skeleton_action_recognition_tpu_torch.data.pipeline import NumpyDataset
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     prefetch_to_device,
+    resolve_device,
 )
 from skeleton_action_recognition_tpu_torch.train import (
     checkpoint as ckpt_lib,
@@ -165,12 +166,13 @@ def _restore(manager, model, optimizer):
         return extra, step
 
 
-def main(argv=None) -> list[dict]:
-    """Train; returns one dict per epoch run: its index, the train and
-    validation loss and accuracy, the train clips/s and ``radar_lambda``
-    after the epoch."""
+def main(argv=None, *, device="cuda") -> list[dict]:
+    """Train on ``device``; returns one dict per epoch run: its index, the
+    train and validation loss and accuracy, the train clips/s and
+    ``radar_lambda`` after the epoch. Without a CUDA device,
+    ``device="cuda"`` raises before anything is set up."""
     arg = get_parser().parse_args(argv)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(device)
     print(f"device: {device}")
     torch.backends.cuda.matmul.allow_tf32 = False
 

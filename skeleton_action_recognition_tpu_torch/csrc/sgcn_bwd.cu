@@ -35,7 +35,7 @@
 //      3 x 2 x 8 dW partials in registers and loops over its split's frames
 //      in chunks of DW_FRAMES, with dz recomputed the same way. Each block
 //      writes its partial for its fixed split to the workspace.
-//   3. sgcn_bwd_reduce_kernel: sums the splits' partials in split order.
+//   3. channel_sums.cuh's fixed-order reduce sums the splits' partials.
 // Every sum is taken in an order fixed by the shapes alone, so two launches
 // on the same inputs give bit-identical dx, dW and db.
 //
@@ -45,6 +45,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "channel_sums.cuh"
 
 namespace {
 
@@ -62,8 +64,6 @@ constexpr int DW_ROWS = DW_FRAMES * V;
 constexpr int DW_OT = 32;                         // dW: output channels per block
 constexpr int DW_IT = 64;                         // dW: input channels per block
 constexpr int DW_THREADS = (DW_OT / 2) * (DW_IT / 8);
-
-constexpr int REDUCE_THREADS = 256;
 
 // Nonzero A[k, v, w] of each row (k, v), in w order, rounded to x's dtype.
 struct RowList {
@@ -303,17 +303,6 @@ __global__ void __launch_bounds__(DW_THREADS)
     }
 }
 
-// out[j] = sum over p in 0..splits-1, in that order, of ws[p * n + j].
-__global__ void __launch_bounds__(REDUCE_THREADS)
-    sgcn_bwd_reduce_kernel(const float* __restrict__ ws, int splits, int n,
-                           float* __restrict__ out) {
-  const int j = blockIdx.x * REDUCE_THREADS + threadIdx.x;
-  if (j >= n) return;
-  float sum = 0.f;
-  for (int p = 0; p < splits; ++p) sum += ws[size_t(p) * n + j];
-  out[j] = sum;
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(
@@ -352,15 +341,11 @@ int launch(const void* x, const void* g, const void* w, const void* a,
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  sgcn_bwd_reduce_kernel<<<(n_w + REDUCE_THREADS - 1) / REDUCE_THREADS,
-                           REDUCE_THREADS, 0, stream>>>(
-      ws_w, splits, n_w, static_cast<float*>(dw));
-  err = cudaGetLastError();
+  err = channel_sums::launch(ws_w, splits, n_w, static_cast<float*>(dw),
+                             stream);
   if (err != cudaSuccess) return int(err);
-  sgcn_bwd_reduce_kernel<<<(n_b + REDUCE_THREADS - 1) / REDUCE_THREADS,
-                           REDUCE_THREADS, 0, stream>>>(
-      ws_b, splits, n_b, static_cast<float*>(db));
-  return int(cudaGetLastError());
+  return int(channel_sums::launch(ws_b, splits, n_b, static_cast<float*>(db),
+                                  stream));
 }
 
 }  // namespace

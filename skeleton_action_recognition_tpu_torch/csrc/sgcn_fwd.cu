@@ -38,9 +38,22 @@
 //      z[f, k, v, o], and writes out[f, w, o] in x's dtype.
 // A and W are rounded to x's dtype on load, as the TPU kernel casts them to
 // its matmul type. All sums are f32.
+//
+// The stats entry points (sgcn_fwd_stats_*) also replace the TPU kernel
+// _fwd_stats_kernel (make_fused_graph_conv with with_stats=True): the
+// epilogue sums, per output channel, the output and its square over every
+// (frame, joint) row, in f32 and on the value rounded to x's dtype (what a
+// BatchNorm reading out back would see). The two threads of a channel meet
+// in shared memory, each block writes its partial to a workspace, and
+// channel_sums.cuh adds the partials in a fixed order: no float atomics, so
+// repeats are bit-identical. The epilogue adds two FMAs per output element
+// and 8 bytes of workspace per (block, channel), against the 50 output
+// values (FRAMES = 2 frames of 25 joints) the block writes for it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "channel_sums.cuh"
 
 namespace {
 
@@ -65,6 +78,7 @@ struct Smem {
   float a_val[V][MAX_NNZ];      // nonzero A[k, v, w] of column w
   unsigned char a_kv[V][MAX_NNZ];  // their k * V + v
   int a_nnz[V];
+  float red[2][THREADS];        // the stats epilogue's per-thread sums
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -91,11 +105,14 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename T>
+// With STATS, partials[blockIdx.x][0 or 1][c_out] gets the block's sums of
+// out and out^2 over its frames.
+template <typename T, bool STATS>
 __global__ void __launch_bounds__(THREADS)
     sgcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, const float* __restrict__ a,
-                    T* __restrict__ out, int frames, int c_in, int c_out) {
+                    T* __restrict__ out, float* __restrict__ partials,
+                    int frames, int c_in, int c_out) {
   extern __shared__ float4 smem4[];
   Smem& s = *reinterpret_cast<Smem*>(smem4);
   float* xs = s.region;             // x chunk [f][v][C_CHUNK]
@@ -185,31 +202,62 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
 
-  if (f >= n_f || o0 + o >= c_out) return;
-  const float* zf = zs + f * K * V * CO_TILE + o;
-  T* og = out + size_t(f0 + f) * V * c_out + o0 + o;
-  for (int wv = 0; wv < V; ++wv) {
-    float sum = 0.f;
-    for (int i = 0; i < s.a_nnz[wv]; ++i)
-      sum += s.a_val[wv][i] * zf[s.a_kv[wv][i] * CO_TILE];
-    og[size_t(wv) * c_out] = from_float<T>(sum);
+  float s_sum = 0.f, s_sq = 0.f;
+  if (f < n_f && o0 + o < c_out) {
+    const float* zf = zs + f * K * V * CO_TILE + o;
+    T* og = out + size_t(f0 + f) * V * c_out + o0 + o;
+    for (int wv = 0; wv < V; ++wv) {
+      float sum = 0.f;
+      for (int i = 0; i < s.a_nnz[wv]; ++i)
+        sum += s.a_val[wv][i] * zf[s.a_kv[wv][i] * CO_TILE];
+      const T val = from_float<T>(sum);
+      og[size_t(wv) * c_out] = val;
+      if (STATS) {
+        const float r = to_float(val);
+        s_sum += r;
+        s_sq += r * r;
+      }
+    }
+  }
+  if (!STATS) return;
+  s.red[0][tid] = s_sum;
+  s.red[1][tid] = s_sq;
+  __syncthreads();
+  if (f == 0 && o0 + o < c_out) {
+    float sum = 0.f, sq = 0.f;
+    for (int ff = 0; ff < FRAMES; ++ff) {
+      sum += s.red[0][ff * CO_TILE + o];
+      sq += s.red[1][ff * CO_TILE + o];
+    }
+    float* part = partials + size_t(blockIdx.x) * 2 * c_out + o0 + o;
+    part[0] = sum;
+    part[c_out] = sq;
   }
 }
 
-template <typename T>
+// With STATS, ws holds blocks * 2 * c_out floats of partials, and sums gets
+// the 2 * c_out channel sums (out, then out^2).
+template <typename T, bool STATS>
 int launch(const void* x, const void* w, const void* b, const void* a,
-           void* out, int frames, int c_in, int c_out, void* stream) {
+           void* out, void* ws, void* sums, int frames, int c_in, int c_out,
+           void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int smem = int(sizeof(Smem));
   cudaError_t err = cudaFuncSetAttribute(
-      sgcn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      sgcn_fwd_kernel<T, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((frames + FRAMES - 1) / FRAMES,
                   (c_out + CO_TILE - 1) / CO_TILE);
-  sgcn_fwd_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  sgcn_fwd_kernel<T, STATS><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<const float*>(a),
-      static_cast<T*>(out), frames, c_in, c_out);
-  return int(cudaGetLastError());
+      static_cast<T*>(out), static_cast<float*>(ws), frames, c_in, c_out);
+  err = cudaGetLastError();
+  if (!STATS || err != cudaSuccess) return int(err);
+  return int(channel_sums::launch(static_cast<const float*>(ws), grid.x,
+                                  2 * c_out, static_cast<float*>(sums),
+                                  stream));
 }
 
 }  // namespace
@@ -220,11 +268,32 @@ int launch(const void* x, const void* w, const void* b, const void* a,
 extern "C" int sgcn_fwd_f32(const void* x, const void* w, const void* b,
                             const void* a, void* out, int frames, int c_in,
                             int c_out, void* stream) {
-  return launch<float>(x, w, b, a, out, frames, c_in, c_out, stream);
+  return launch<float, false>(x, w, b, a, out, nullptr, nullptr, frames, c_in,
+                              c_out, stream);
 }
 
 extern "C" int sgcn_fwd_bf16(const void* x, const void* w, const void* b,
                              const void* a, void* out, int frames, int c_in,
                              int c_out, void* stream) {
-  return launch<__nv_bfloat16>(x, w, b, a, out, frames, c_in, c_out, stream);
+  return launch<__nv_bfloat16, false>(x, w, b, a, out, nullptr, nullptr,
+                                      frames, c_in, c_out, stream);
+}
+
+// As sgcn_fwd_*, plus ws: ceil(frames / FRAMES) * 2 * c_out f32 of
+// workspace, and sums: (2 * c_out,) f32, the sums of out and of out^2 over
+// all frames and joints per output channel.
+extern "C" int sgcn_fwd_stats_f32(const void* x, const void* w,
+                                  const void* b, const void* a, void* out,
+                                  void* ws, void* sums, int frames, int c_in,
+                                  int c_out, void* stream) {
+  return launch<float, true>(x, w, b, a, out, ws, sums, frames, c_in, c_out,
+                             stream);
+}
+
+extern "C" int sgcn_fwd_stats_bf16(const void* x, const void* w,
+                                   const void* b, const void* a, void* out,
+                                   void* ws, void* sums, int frames, int c_in,
+                                   int c_out, void* stream) {
+  return launch<__nv_bfloat16, true>(x, w, b, a, out, ws, sums, frames, c_in,
+                                     c_out, stream);
 }

@@ -13,6 +13,7 @@ from skeleton_action_recognition_tpu_torch.models.layers import init_layer
 from skeleton_action_recognition_tpu_torch.ops.sgcn import (
     K_PARTS,
     fused_graph_conv,
+    fused_graph_conv_stats,
     graph_conv_reference,
 )
 
@@ -29,15 +30,22 @@ class GraphConvTD(nn.Module):
     chip. Both paths share the ``Dense_0`` parameters, as in the JAX
     package. The fused path takes the adjacency as a constant, so a
     trainable adjacency (one that requires grad) raises there.
+
+    ``emit_stats=True`` (with ``fused``): in training the layer returns
+    ``(out, s, ss)``, the output and its f32 per-channel sums of ``out``
+    and ``out**2`` from the kernel's epilogue, for a BatchNorm fed by them
+    (:class:`..stgcn.StatsTemporalConv`); in eval it returns ``out`` alone,
+    through the plain fused kernel.
     """
 
     def __init__(
         self, in_channels: int, filters: int, dtype=None,
-        fused: bool = False, generator=None,
+        fused: bool = False, emit_stats: bool = False, generator=None,
     ):
         super().__init__()
         self.dtype = dtype
         self.fused = fused
+        self.emit_stats = emit_stats
         self.Dense_0 = init_layer(
             nn.Linear(in_channels, K_PARTS * filters), generator
         )
@@ -50,7 +58,9 @@ class GraphConvTD(nn.Module):
                     "the fused spatial conv takes the adjacency as a "
                     "constant; it cannot train it (trainable_adjacency)"
                 )
-            return fused_graph_conv(
+            op = (fused_graph_conv_stats if self.emit_stats and self.training
+                  else fused_graph_conv)
+            return op(
                 x.contiguous(), self.Dense_0.weight, self.Dense_0.bias, a
             )
         return graph_conv_reference(

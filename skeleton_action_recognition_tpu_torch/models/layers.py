@@ -80,20 +80,32 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.ndim - 1))
             mean = xf.mean(axes)
             var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-            if self.update_stats:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.copy_(
-                        m * self.running_mean + (1 - m) * mean
-                    )
-                    self.running_var.copy_(
-                        m * self.running_var + (1 - m) * var
-                    )
+            self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         scale = torch.rsqrt(var + self.epsilon) * self.weight
         y = (xf - mean) * scale + self.bias
         return y if self.dtype is None else y.to(self.dtype)
+
+    def update_running(self, mean, var):
+        """Fold a batch's ``mean`` and ``var`` into the running statistics,
+        ``momentum * running + (1 - momentum) * batch``, unless
+        ``update_stats`` is off. Modules that take the batch statistics
+        themselves (the fused temporal chains of ``stgcn.py``) update their
+        BatchNorms through this, so that :func:`frozen_stats` holds for
+        them too."""
+        if not self.update_stats:
+            return
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+    def folded_affine(self, mean, var):
+        """``(scale, shift)`` with ``x * scale + shift`` the normalize of
+        ``x`` by ``mean`` and ``var``, in float32."""
+        scale = torch.rsqrt(var + self.epsilon) * self.weight
+        return scale, self.bias - mean * scale
 
 
 @contextlib.contextmanager
@@ -102,7 +114,9 @@ def frozen_stats(module: nn.Module, frozen: bool = True):
     not update their running statistics (when ``frozen``). Rematerialization
     re-runs a block's forward in the backward pass; flax's ``nn.remat``
     keeps the statistics of the first run, and so does the port by freezing
-    them for the second."""
+    them for the second. Modules that take their BatchNorms' batch
+    statistics themselves update them through
+    :meth:`BatchNorm.update_running`, so the freeze holds for them too."""
     norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
     before = [m.update_stats for m in norms]
     for m in norms:

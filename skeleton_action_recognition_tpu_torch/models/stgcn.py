@@ -9,6 +9,14 @@ channels-last ``(N*M, T, V, C)``. Module and parameter names follow the flax
 tree, so :func:`..interop.flax_to_state_dict` maps a JAX checkpoint's
 variables one to one. ``model.train()`` selects the flax ``train=True``
 path (batch statistics); ``model.eval()`` the running statistics.
+
+Two training options replace the temporal chain's eager BatchNorm passes
+with CUDA kernels, as in the JAX model: ``sgcn_stats`` takes BN1's batch
+statistics from the fused spatial conv's epilogue
+(:class:`StatsTemporalConv`), and ``fused_tconv`` runs BN1's normalize, the
+ReLU, the temporal conv and BN2's statistics in one kernel on the stride-1
+blocks (:class:`FusedTemporalConv`). Both keep ``TemporalConv``'s state
+dict.
 """
 
 from __future__ import annotations
@@ -27,6 +35,10 @@ from skeleton_action_recognition_tpu_torch.models.layers import (
     BatchNorm,
     frozen_stats,
     init_layer,
+)
+from skeleton_action_recognition_tpu_torch.ops.tconv import (
+    TAPS,
+    affine_relu_tconv,
 )
 
 IN_CHANNELS = 3  # x, y, z of each joint
@@ -99,14 +111,112 @@ class TemporalConv(nn.Module):
         return self.BatchNorm_1(x)
 
 
+class FusedTemporalConv(nn.Module):
+    """:class:`TemporalConv` at stride 1 whose training-mode chain runs
+    through the fused kernels (:func:`..ops.tconv.affine_relu_tconv`):
+    BN1's normalize, folded into a per-channel affine from the batch's
+    statistics, the ReLU, the 9-tap conv and BN2's batch statistics in one
+    pass; the JAX package's ``FusedTemporalConv``. Its numerics follow
+    that module: BN1's variance is ``E[x^2] - E[x]^2`` without a clamp at
+    0, and the output is float32 in both modes, whatever ``dtype``. In eval
+    the chain is the plain folded affine, ReLU and conv (no kernel). The
+    parameters are :class:`TemporalConv`'s."""
+
+    def __init__(
+        self, in_channels: int, filters: int, kernel_size: int = TAPS,
+        dtype=None, generator=None,
+    ):
+        super().__init__()
+        if in_channels != filters or kernel_size != TAPS:
+            raise ValueError(
+                f"the fused chain takes C -> C channels over {TAPS} taps, "
+                f"got {in_channels} -> {filters} over {kernel_size}"
+            )
+        self.dtype = dtype
+        self.BatchNorm_0 = BatchNorm(in_channels, dtype)
+        self.Conv_0 = _conv(in_channels, filters, kernel_size, 1, generator)
+        self.BatchNorm_1 = BatchNorm(filters, dtype)
+
+    def forward(self, x):
+        bn0, conv, bn1 = self.BatchNorm_0, self.Conv_0, self.BatchNorm_1
+        cd = self.dtype or x.dtype
+        if not self.training:
+            scale1, shift1 = bn0.folded_affine(bn0.running_mean,
+                                               bn0.running_var)
+            h = torch.relu(x.float() * scale1 + shift1).to(cd)
+            half = TAPS // 2
+            h = F.pad(h, (0, 0, 0, 0, half, half))
+            y = F.conv2d(h.permute(0, 3, 1, 2), conv.weight.to(cd))
+            u = y.permute(0, 2, 3, 1).float() + conv.bias
+            scale2, shift2 = bn1.folded_affine(bn1.running_mean,
+                                               bn1.running_var)
+            return u * scale2 + shift2
+        xf = x.float()
+        mean = xf.mean((0, 1, 2))
+        var = (xf * xf).mean((0, 1, 2)) - mean * mean
+        scale1, shift1 = bn0.folded_affine(mean, var)
+        u, s2, ss2 = affine_relu_tconv(
+            x.to(cd).contiguous(), scale1, shift1, conv.weight, conv.bias
+        )
+        n = u.numel() // u.shape[-1]
+        mean2 = s2 / n
+        var2 = ss2 / n - mean2 * mean2
+        bn0.update_running(mean, var)
+        bn1.update_running(mean2, var2)
+        scale2, shift2 = bn1.folded_affine(mean2, var2)
+        return u.float() * scale2 + shift2
+
+
+class StatsTemporalConv(nn.Module):
+    """:class:`TemporalConv` fed BN1's batch statistics, the f32 sums
+    ``s`` and ``ss`` of its input and of its square per channel, by the
+    spatial conv's epilogue (:func:`..ops.sgcn.fused_graph_conv_stats`),
+    instead of reading the activation again; the JAX package's
+    ``StatsTemporalConv``. BN1's variance is clamped at 0, as
+    :class:`..layers.BatchNorm` does. In eval it uses the running
+    statistics and takes no sums. The parameters are
+    :class:`TemporalConv`'s."""
+
+    def __init__(
+        self, in_channels: int, filters: int, kernel_size: int = TAPS,
+        stride: int = 1, dtype=None, generator=None,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.BatchNorm_0 = BatchNorm(in_channels, dtype)
+        self.Conv_0 = _conv(
+            in_channels, filters, kernel_size, stride, generator
+        )
+        self.BatchNorm_1 = BatchNorm(filters, dtype)
+
+    def forward(self, x, s=None, ss=None):
+        bn0 = self.BatchNorm_0
+        if self.training:
+            n = x.numel() // x.shape[-1]
+            mean = s / n
+            var = torch.clamp(ss / n - mean * mean, min=0.0)
+            bn0.update_running(mean, var)
+        else:
+            mean, var = bn0.running_mean, bn0.running_var
+        scale1, shift1 = bn0.folded_affine(mean, var)
+        h = torch.relu(x.float() * scale1 + shift1).to(self.dtype or x.dtype)
+        return self.BatchNorm_1(temporal_conv(self.Conv_0, h, self.dtype))
+
+
 class STConvBlock(nn.Module):
     """Spatial conv + temporal conv + residual. The residual is absent
     (``residual=False``), the identity when channels and stride match, and
-    otherwise a strided 1x1 conv + BN."""
+    otherwise a strided 1x1 conv + BN.
+
+    The temporal chain, as the JAX block routes it: with ``sgcn_stats`` and
+    a fused spatial conv, :class:`StatsTemporalConv` (at either stride; it
+    takes precedence over ``fused_tconv``); else with ``fused_tconv`` at
+    stride 1, :class:`FusedTemporalConv`; else :class:`TemporalConv`."""
 
     def __init__(
         self, in_channels: int, filters: int, stride: int = 1,
         residual: bool = True, dtype=None, fused_sgcn: bool = False,
+        fused_tconv: bool = False, sgcn_stats: bool = False,
         generator=None,
     ):
         super().__init__()
@@ -120,14 +230,25 @@ class STConvBlock(nn.Module):
                 in_channels, filters, 1, stride, generator
             )
             self.residual_bn = BatchNorm(filters, dtype)
+        self.use_stats = sgcn_stats and fused_sgcn
         self.sgcn = GraphConvTD(
             in_channels, filters, dtype=dtype, fused=fused_sgcn,
-            generator=generator,
+            emit_stats=self.use_stats, generator=generator,
         )
-        self.tgcn = TemporalConv(
-            filters, filters, stride=stride, dtype=dtype,
-            generator=generator,
-        )
+        if self.use_stats:
+            self.tgcn = StatsTemporalConv(
+                filters, filters, stride=stride, dtype=dtype,
+                generator=generator,
+            )
+        elif fused_tconv and stride == 1:
+            self.tgcn = FusedTemporalConv(
+                filters, filters, dtype=dtype, generator=generator,
+            )
+        else:
+            self.tgcn = TemporalConv(
+                filters, filters, stride=stride, dtype=dtype,
+                generator=generator,
+            )
 
     def forward(self, x, a):
         if not self.residual:
@@ -138,7 +259,9 @@ class STConvBlock(nn.Module):
             )
         else:
             res = x
-        x = self.tgcn(self.sgcn(x, a))
+        x = self.sgcn(x, a)
+        # in training a stats-emitting spatial conv gives (out, s, ss)
+        x = self.tgcn(*x) if self.use_stats and self.training else self.tgcn(x)
         return torch.relu(x + res)
 
 
@@ -182,11 +305,13 @@ def remat_block(block: nn.Module, x, a):
 class STGCNBackbone(nn.Module):
     """data-BN + the 10 blocks of ``BLOCK_PLAN`` + pooling/logits head.
     With ``remat``, each block is rematerialized when gradients are
-    taken."""
+    taken. ``sgcn_stats`` applies to the blocks whose spatial conv is
+    fused; ``fused_tconv`` to the stride-1 blocks."""
 
     def __init__(
         self, num_classes: int = 60, dtype=None, fused_sgcn: bool = False,
         fused_sgcn_min_channels: int = 0, remat: bool = True,
+        fused_tconv: bool = False, sgcn_stats: bool = False,
         generator=None,
     ):
         super().__init__()
@@ -197,6 +322,7 @@ class STGCNBackbone(nn.Module):
             self.add_module(f"block_{i}", STConvBlock(
                 c, filters, stride=stride, residual=residual, dtype=dtype,
                 fused_sgcn=fused_sgcn and filters >= fused_sgcn_min_channels,
+                fused_tconv=fused_tconv, sgcn_stats=sgcn_stats,
                 generator=generator,
             ))
             c = filters
@@ -223,17 +349,22 @@ class Model(nn.Module):
     routes the spatial conv of every block with at least
     ``fused_sgcn_min_channels`` filters through the CUDA kernels.
     ``remat`` (default on, as in the JAX model) recomputes each block in
-    the backward pass. ``trainable_adjacency`` makes the spatial-partition
-    stack a parameter, ``adjacency_matrix`` (the flax
-    ``params['adjacency_matrix']``); the fused kernels take it as a
-    constant, so the two exclude each other. Weights are drawn from
-    ``generator`` on the CPU and moved to ``device``.
+    the backward pass. ``sgcn_stats`` (with ``fused_sgcn``) feeds BN1's
+    batch statistics from the spatial kernel's epilogue, and
+    ``fused_tconv`` runs the stride-1 blocks' temporal chain through the
+    fused kernels, both in training only (:class:`STConvBlock`).
+    ``trainable_adjacency`` makes the spatial-partition stack a parameter,
+    ``adjacency_matrix`` (the flax ``params['adjacency_matrix']``); the
+    fused kernels take it as a constant, so the two exclude each other.
+    Weights are drawn from ``generator`` on the CPU and moved to
+    ``device``.
     """
 
     def __init__(
         self, num_classes: int = 60, dtype=None, fused_sgcn: bool = False,
         fused_sgcn_min_channels: int = 0, remat: bool = True,
-        trainable_adjacency: bool = False, device=None, generator=None,
+        trainable_adjacency: bool = False, fused_tconv: bool = False,
+        sgcn_stats: bool = False, device=None, generator=None,
     ):
         super().__init__()
         if fused_sgcn and trainable_adjacency:
@@ -244,6 +375,7 @@ class Model(nn.Module):
         self.backbone = STGCNBackbone(
             num_classes, dtype=dtype, fused_sgcn=fused_sgcn,
             fused_sgcn_min_channels=fused_sgcn_min_channels, remat=remat,
+            fused_tconv=fused_tconv, sgcn_stats=sgcn_stats,
             generator=generator,
         )
         a = torch.from_numpy(spatial_adjacency())

@@ -1,13 +1,15 @@
 """Fused ST-GCN spatial graph conv: the CUDA kernels and their plain versions.
 
 Counterpart of ``skeleton_action_recognition_tpu/ops/pallas/sgcn.py``'s
-``make_fused_graph_conv(a, v)`` (``with_stats=False``) and its VJP. The
-kernel in ``csrc/sgcn_fwd.cu`` replaces the TPU kernel ``_fwd_kernel``:
+``make_fused_graph_conv(a, v, with_stats)`` and its VJPs. The kernel in
+``csrc/sgcn_fwd.cu`` replaces the TPU kernel ``_fwd_kernel``:
 
     ``z_k = x @ W_k^T + b_k``          (1x1 conv, one slice per partition)
     ``out[.., w, o] = sum_kv A[k,v,w] z_k[.., v, o]``
 
-and ``csrc/sgcn_bwd.cu`` replaces ``_bwd_kernel``: from the output
+its stats entry point replaces ``_fwd_stats_kernel``, which also sums
+``out`` and ``out**2`` per channel for the next BatchNorm; and
+``csrc/sgcn_bwd.cu`` replaces ``_bwd_kernel``: from the output
 cotangent ``g``, ``dz = A g`` per partition, ``dx = sum_k dz_k W_k``,
 ``dW_k = dz_k^T x`` and ``db_k = sum dz_k`` over all rows.
 
@@ -19,7 +21,9 @@ in shared memory (see the sources' notes).
 
 :class:`FusedGraphConv` ties the two into an autograd Function. Like the
 JAX VJP it saves its input ``x`` (not ``z``) and treats the adjacency as a
-constant with a zero cotangent.
+constant with a zero cotangent. :class:`FusedGraphConvStats` does the same
+for the stats variant; its backward folds the sums' cotangents into the
+output's and runs the same backward kernel.
 
 The weight is ``nn.Linear``'s ``(K * C_out, C_in)``, partition-major rows,
 the transpose of the JAX package's flax ``(C_in, K * C_out)`` kernel.
@@ -38,6 +42,9 @@ from skeleton_action_recognition_tpu_torch.ops.build import (
 
 K_PARTS = 3
 NUM_JOINTS = 25
+# csrc/sgcn_fwd.cu's frames per block: the stats workspace holds one
+# partial per block
+_FWD_FRAMES = 2
 # csrc/sgcn_bwd.cu's dW tiling: frames per chunk, output and input channels
 # per block. The wrapper sizes the workspace from them.
 _DW_FRAMES, _DW_OT, _DW_IT = 2, 32, 64
@@ -57,6 +64,15 @@ def graph_conv_reference(x, weight, bias, a):
     z = F.linear(x, weight.to(x.dtype), bias.to(x.dtype))
     z = z.reshape(z.shape[:-1] + (a.shape[0], -1))
     return torch.einsum("ntvko,kvw->ntwo", z, a.to(x.dtype))
+
+
+def graph_conv_stats_reference(x, weight, bias, a):
+    """:func:`graph_conv_reference` and the f32 per-channel sums of the
+    output and of its square over every ``(NM, T, V)`` row, taken on the
+    output rounded to ``x.dtype`` -> ``(out, s, ss)``."""
+    out = graph_conv_reference(x, weight, bias, a)
+    of = out.float()
+    return out, of.sum((0, 1, 2)), (of * of).sum((0, 1, 2))
 
 
 def graph_conv_backward_reference(x, weight, a, g):
@@ -109,10 +125,11 @@ def _check(x, weight, bias, a):
 
 
 
-def _kernels(source: str, n_pointers: int, n_ints: int):
+def _kernels(source: str, n_pointers: int, n_ints: int, stem=None):
     """``{dtype: C function}`` of ``csrc/<source>``'s f32 and bf16 entry
-    points (``<stem>_f32``, ``<stem>_bf16``)."""
-    stem = source.removesuffix(".cu")
+    points (``<stem>_f32``, ``<stem>_bf16``; ``stem`` defaults to the
+    source's)."""
+    stem = stem or source.removesuffix(".cu")
     return {
         dtype: kernel_function(source, f"{stem}_{suffix}", n_pointers, n_ints)
         for dtype, suffix in ((torch.float32, "f32"),
@@ -137,6 +154,31 @@ def _forward(x, weight, bias, a):
     )
     fused_graph_conv.launches += 1
     return out
+
+
+def _forward_stats(x, weight, bias, a):
+    """``(out, s, ss)`` through the kernel's stats entry point on CUDA,
+    the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return graph_conv_stats_reference(x, weight, bias, a)
+    check_cuda("sgcn", x=x, weight=weight, bias=bias, a=a)
+    nm, t, v, c_in = x.shape
+    c_out = weight.shape[0] // K_PARTS
+    out = torch.empty((nm, t, v, c_out), dtype=x.dtype, device=x.device)
+    sums = torch.zeros(2 * c_out, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out, sums[:c_out], sums[c_out:]
+    blocks = -(-(nm * t) // _FWD_FRAMES)
+    ws = torch.empty(blocks * 2 * c_out, dtype=torch.float32,
+                     device=x.device)
+    launch(
+        _kernels("sgcn_fwd.cu", 7, 3, "sgcn_fwd_stats")[x.dtype],
+        "sgcn_fwd_stats", x.device,
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), a.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), sums.data_ptr(), nm * t, c_in, c_out,
+    )
+    fused_graph_conv_stats.launches += 1
+    return out, sums[:c_out], sums[c_out:]
 
 
 def backward_splits(frames: int, c_in: int, c_out: int) -> int:
@@ -210,6 +252,27 @@ class FusedGraphConv(torch.autograd.Function):
         return dx, dw, db, None
 
 
+class FusedGraphConvStats(torch.autograd.Function):
+    """The spatial graph conv with the BatchNorm-statistics epilogue:
+    ``(out, s, ss)``. Saves ``x``, ``weight`` and ``out``; the backward
+    folds the sums' cotangents into the output's, ``g_out + g_s + 2 out
+    g_ss`` in f32 (``ops/pallas/sgcn.py:315-323``), and runs the backward
+    kernel of :func:`fused_graph_conv_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, a):
+        out, s, ss = _forward_stats(x, weight, bias, a)
+        ctx.save_for_backward(x, weight, a, out)
+        return out, s, ss
+
+    @staticmethod
+    def backward(ctx, g_out, g_s, g_ss):
+        x, weight, a, out = ctx.saved_tensors
+        gg = g_out.float() + g_s + 2.0 * out.float() * g_ss
+        dx, dw, db = fused_graph_conv_backward(x, weight, a, gg.contiguous())
+        return dx, dw, db, None
+
+
 def fused_graph_conv(x, weight, bias, a):
     """Spatial graph conv through the CUDA kernels, differentiable in
     ``x``, ``weight`` and ``bias``.
@@ -224,5 +287,18 @@ def fused_graph_conv(x, weight, bias, a):
     return FusedGraphConv.apply(x, weight, bias, a)
 
 
+def fused_graph_conv_stats(x, weight, bias, a):
+    """:func:`fused_graph_conv` that also returns the f32 per-channel sums
+    of the output and of its square over all ``(NM, T, V)`` rows, taken on
+    the output rounded to ``x.dtype``: ``(out, s, ss)``, differentiable in
+    ``x``, ``weight`` and ``bias`` through all three. CPU tensors go to the
+    plain versions; CUDA tensors launch the stats kernel (counted in
+    ``fused_graph_conv_stats.launches``) and, in the backward, the backward
+    kernel, or raise."""
+    _check(x, weight, bias, a)
+    return FusedGraphConvStats.apply(x, weight, bias, a)
+
+
 fused_graph_conv.launches = 0
+fused_graph_conv_stats.launches = 0
 fused_graph_conv_backward.launches = 0

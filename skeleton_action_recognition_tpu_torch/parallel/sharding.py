@@ -12,6 +12,18 @@ import numpy as np
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device where torch sees
+    none raises, so that a caller never runs on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} was asked for, but torch sees no CUDA "
+            "device; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
 def prefetch_to_device(iterator, device, depth: int = 2):
     """Yield each item of ``iterator`` (a tuple of numpy arrays) as a tuple
     of tensors on ``device``, with the next ``depth - 1`` items' copies

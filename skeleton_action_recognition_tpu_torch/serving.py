@@ -9,12 +9,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from skeleton_action_recognition_tpu_torch.parallel.sharding import (
+    resolve_device,
+)
+
 
 class Predictor:
-    """Class probabilities for batches of up to ``max_batch`` clips."""
+    """Class probabilities for batches of up to ``max_batch`` clips, on
+    ``device`` (the CUDA card unless the caller asks for the CPU; without a
+    card, ``"cuda"`` raises)."""
 
-    def __init__(self, model, max_batch: int = 64, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, model, max_batch: int = 64, device="cuda"):
+        self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.max_batch = max_batch
 

@@ -41,7 +41,8 @@ def test_run_name_matches_the_jax_trainer():
 
 def test_other_models_are_refused(tmp_path):
     with pytest.raises(ValueError, match="item 15"):
-        main_gnn.main(["--model", "stgin", "--log-dir", str(tmp_path)])
+        main_gnn.main(["--model", "stgin", "--log-dir", str(tmp_path)],
+                      device="cpu")
 
 
 @pytest.mark.parametrize("precision,tf32", [
@@ -117,7 +118,7 @@ def test_main_gnn_end_to_end_with_resume(tiny_tfrecords, tmp_path):
         "--base-lr", "0.01", "--fused-sgcn",
         "--fused-sgcn-min-channels", "0",
     ]
-    main_gnn.main(argv)
+    main_gnn.main(argv, device="cpu")
     (run,) = os.listdir(log_dir)
     run_dir = log_dir / run
     files = os.listdir(run_dir)
@@ -130,7 +131,7 @@ def test_main_gnn_end_to_end_with_resume(tiny_tfrecords, tmp_path):
     ckpts = sorted(int(d) for d in os.listdir(run_dir / "checkpoints"))
     assert ckpts == [0, 1, 2]
 
-    main_gnn.main(argv[:5] + ["3"] + argv[6:] + ["--resume"])
+    main_gnn.main(argv[:5] + ["3"] + argv[6:] + ["--resume"], device="cpu")
     assert os.listdir(log_dir) == [run]
     ckpts = sorted(int(d) for d in os.listdir(run_dir / "checkpoints"))
     assert ckpts == [0, 1, 2, 3]
@@ -171,7 +172,7 @@ def test_main_gnn_trains_through_the_fused_op(tiny_tfrecords, tmp_path,
         "--num-classes", "4", "--train-data-path", str(train_dir),
         "--test-data-path", str(test_dir), "--log-dir",
         str(tmp_path / "logs"), "--fused-sgcn",
-    ])
+    ], device="cpu")
     # 2 train steps x 6 fused blocks x (2 forwards + 1 backward), and 1
     # eval batch of 3 clips x 6 forwards; the four 64-wide blocks take the
     # stock path, which does not go through the op
@@ -199,7 +200,7 @@ def test_main_gnn_freezes_a_trainable_adjacency_and_profiles(
         "--train-data-path", str(train_dir),
         "--test-data-path", str(test_dir), "--log-dir", str(log_dir),
         "--profile-dir", str(profile_dir), "--base-lr", "0.05",
-    ])
+    ], device="cpu")
     assert [h["epoch"] for h in history] == [0]
     assert os.listdir(profile_dir) == ["train_step.trace.json"]
     (run,) = os.listdir(log_dir)

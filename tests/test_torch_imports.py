@@ -22,6 +22,9 @@ def test_port_imports_with_jax_blocked():
         "import skeleton_action_recognition_tpu_torch.models.stgcn\n"
         "import skeleton_action_recognition_tpu_torch.serving\n"
         "import skeleton_action_recognition_tpu_torch.ops.sgcn\n"
+        "import skeleton_action_recognition_tpu_torch.ops.tconv\n"
+        "import skeleton_action_recognition_tpu_torch.models.gcn\n"
+        "import skeleton_action_recognition_tpu_torch.models.layers\n"
         "import skeleton_action_recognition_tpu_torch.interop\n"
         "import skeleton_action_recognition_tpu_torch.cli.main_gnn\n"
         "import skeleton_action_recognition_tpu_torch.data.pipeline\n"

@@ -26,7 +26,7 @@ def predictors():
     )
     port = stgcn.Model(num_classes=6, fused_sgcn=True)
     port.load_state_dict(interop.flax_to_state_dict(variables))
-    return x, jax_pred, serving.Predictor(port, max_batch=4)
+    return x, jax_pred, serving.Predictor(port, max_batch=4, device="cpu")
 
 
 @pytest.mark.parametrize("n", [1, 3])
@@ -43,7 +43,8 @@ def test_predictor_matches_jax_predictor(predictors, n):
 def test_predictor_serves_in_eval_mode_and_bounds_the_batch(predictors):
     x, _, port_pred = predictors
     port_pred.model.train()
-    port_pred_again = serving.Predictor(port_pred.model, max_batch=2)
+    port_pred_again = serving.Predictor(port_pred.model, max_batch=2,
+                                             device="cpu")
     assert not port_pred_again.model.training
     with pytest.raises(ValueError):
         port_pred_again(x)

@@ -168,3 +168,85 @@ def test_autograd_function_launches_both_kernels(cuda):
     want = sgcn.graph_conv_backward_reference(x.detach(), w.detach(), a, g)
     _assert_close((x.grad, w.grad, b.grad), want,
                   BWD_REL_TOL[torch.float32])
+
+
+# the stats epilogue (kernel #2), as |error| / sum |terms| per channel.
+# Against the sums of the kernel's own output, in f64: f32 sums of up to
+# 1.9 M rows in other orders (1e-5). Against the plain version's sums: f32
+# as before; in bf16 each output element may be a bf16 ulp (2^-8) away from
+# the plain one, so a sum of outputs or of their squares may be up to two
+# ulps away (1e-2).
+STATS_OWN_TOL = 1e-5
+STATS_PLAIN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _assert_stats_close(got, want, dtype):
+    out, ref = got[0], want[0]
+    assert out.dtype == dtype and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= REL_TOL[dtype] * ref.float().abs().max().item()
+    for own, src, tol in ((True, out, STATS_OWN_TOL),
+                          (False, ref, STATS_PLAIN_TOL[dtype])):
+        of = src.double()
+        exact = (of.sum((0, 1, 2)), (of * of).sum((0, 1, 2)))
+        scale = (of.abs().sum((0, 1, 2)), exact[1])
+        for name, p, q, sc in zip(("s", "ss"), got[1:],
+                                  exact if own else want[1:], scale):
+            assert p.dtype == torch.float32, name
+            rel = ((p.double() - q.double()).abs()
+                   / sc.clamp_min(1e-30)).max().item()
+            assert rel <= tol, (name, own, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t,c_in,c_out", MODEL_SHAPES + [(7, 20, 40)])
+def test_stats_kernel_matches_plain_version(cuda, t, c_in, c_out, dtype):
+    x, w, b, a = _inputs(t, c_in, c_out, dtype, cuda, nm=3)
+    before = sgcn.fused_graph_conv_stats.launches
+    got = sgcn.fused_graph_conv_stats(x, w, b, a)
+    torch.cuda.synchronize()
+    assert sgcn.fused_graph_conv_stats.launches == before + 1
+    _assert_stats_close(got, sgcn.graph_conv_stats_reference(x, w, b, a),
+                        dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_stats_kernel_repeats_bit_for_bit(cuda, dtype):
+    """The sums leave through per-block partials and a fixed-order reduce:
+    two launches agree exactly."""
+    x, w, b, a = _inputs(150, 128, 128, dtype, cuda, nm=8)
+    first = sgcn.fused_graph_conv_stats(x, w, b, a)
+    second = sgcn.fused_graph_conv_stats(x, w, b, a)
+    for p, q in zip(first, second):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.gpu
+def test_stats_function_launches_its_kernels_only(cuda, monkeypatch):
+    """On CUDA tensors the stats op launches the stats kernel and, in the
+    backward, the backward kernel with the sums' cotangents folded in;
+    neither plain version is called."""
+    x, w, b, a = _inputs(12, 16, 32, torch.float32, cuda)
+    plain_bwd = sgcn.graph_conv_backward_reference
+
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(sgcn, "graph_conv_stats_reference", refuse)
+    monkeypatch.setattr(sgcn, "graph_conv_backward_reference", refuse)
+    args = [t.clone().requires_grad_() for t in (x, w, b)]
+    fwd = sgcn.fused_graph_conv_stats.launches
+    bwd = sgcn.fused_graph_conv_backward.launches
+    out, s, ss = sgcn.fused_graph_conv_stats(*args, a)
+    g = torch.randn_like(out)
+    ((out * g).sum() + 0.1 * s.sum() + 0.01 * ss.sum()).backward()
+    torch.cuda.synchronize()
+    assert sgcn.fused_graph_conv_stats.launches == fwd + 1
+    assert sgcn.fused_graph_conv_backward.launches == bwd + 1
+    gg = g + 0.1 + 0.02 * out.detach()
+    want = plain_bwd(x, w, a, gg)
+    _assert_close([t.grad for t in args], want, BWD_REL_TOL[torch.float32])

@@ -103,9 +103,10 @@ def test_two_epochs_unfreezing_lambda_then_resume(tmp_path, use_kernels):
     ]
     if not use_kernels:
         argv += ["--no-use-pallas", "--no-use-pallas-stft"]
-    history = main_spectrogram.main(argv)
+    history = main_spectrogram.main(argv, device="cpu")
     resumed = main_spectrogram.main(
-        [a if a != "2" else "3" for a in argv] + ["--resume"])
+        [a if a != "2" else "3" for a in argv] + ["--resume"],
+        device="cpu")
 
     assert [h["epoch"] for h in history + resumed] == [0, 1, 2]
     assert all(np.isfinite(v) for h in history + resumed
@@ -152,7 +153,7 @@ def test_resume_falls_back_to_the_model_when_the_optimizer_differs(
     adam = torch.optim.Adam(model.parameters())
     checkpoint.CheckpointManager(os.path.join(run_dir, "checkpoints")).save(
         0, model, adam, {"epoch": 0})
-    history = main_spectrogram.main(argv + ["--resume"])
+    history = main_spectrogram.main(argv + ["--resume"], device="cpu")
     assert "optimizer state does not fit" in capsys.readouterr().out
     assert [h["epoch"] for h in history] == [1]
     assert history[0]["radar_lambda"] == np.float32(7e-4)  # frozen
