@@ -10,10 +10,10 @@ so the exit code is not 0.
 
 1. ``env``: the card, its power limit, torch and CUDA versions. Without a
    CUDA device the script stops here (it never falls back to the CPU).
-2. ``build``: compiles the eight ``csrc/*.cu`` sources (sgcn, radar, stft
-   and tconv, forward and backward) for ``sm_90a`` from the checkout, one
-   ``nvcc`` each, at once (seconds, and the compiler's register and
-   shared-memory reports).
+2. ``build``: compiles the ten ``csrc/*.cu`` sources (sgcn, radar,
+   radar_dense, stft and tconv, forward and backward) for ``sm_90a`` from
+   the checkout, one ``nvcc`` each, at once (seconds, and the compiler's
+   register and shared-memory reports).
 3. ``kernel``: the CUDA spatial graph-conv kernel against its plain PyTorch
    version at the six (T, C_in, C_out) shapes of the ten ST-GCN blocks, at
    NM=128 (64 clips x 2 bodies), in f32 and bf16: error and CUDA-event
@@ -64,6 +64,17 @@ so the exit code is not 0.
    seeded skeleton-like clips with one empty body, at lambda = 5e-4 and at
    a damped lambda = 10: the error of each output, two backward launches
    bit for bit, CUDA-event times of kernel and plain.
+   ``radar_dense_kernel``: the dense-operator radar kernels (#8 forward, #9
+   backward) against their plain versions on the same clips (the operator
+   ``pad_frames_operator(300, 250)`` padded to 512-row tiles), at both
+   lambdas, TF32 off: the error of each output, two backward launches bit
+   for bit, the dense route against the spline route, CUDA-event times of
+   kernel, plain and the operator products alone (``torch.matmul``). Then
+   ``radar_dense_path``: ``radar_return_fused`` forward and backward
+   through autograd to x, loc and lambda, as the JAX package's
+   ``scripts/bench_spec_decompose.py`` drives it: one launch of each
+   kernel, finite gradients, and the times of forward and forward +
+   backward beside the spline route's.
 10. ``stft_kernel``: the STFT log-magnitude kernels (#10, #11) against their
     plain versions on that radar return (16 x 75,000 samples, n_fft 256,
     hop 16: 4,688 frames), the same readings.
@@ -88,12 +99,15 @@ ten spatial convs of one 64-clip request; ``sgcn_bwd`` and
 ``sgcn_fwd_stats``: f32 time of the ten blocks' calls at NM=256;
 ``tconv_*``: f32 time of the eight stride-1 blocks' calls at NM=256, with
 cuDNN's conv alone as ``library_ms``; ``radar_*``/``stft_*``: one call at
-16 clips, lambda = 5e-4; ``bound_ms``: the least time of the same work at
-the card's published f32 peak and memory rate; ``launches``: the counts of
-the ``cli`` run for ``sgcn_fwd``/``sgcn_bwd``, of the ``spec_cli`` run for
-the radar and STFT kernels and of the ``train`` phase's timed steps for
-the others, each main path counted from 0), the card's name and power
-limit as ``nvidia-smi`` prints them, and the result line.
+16 clips, lambda = 5e-4, with the operator products alone as the dense
+radar kernels' ``library_ms``; ``bound_ms``: the least time of the same
+work at the card's published f32 peak and memory rate; ``launches``: the
+counts of the ``cli`` run for ``sgcn_fwd``/``sgcn_bwd``, of the
+``spec_cli`` run for the spline radar and STFT kernels, of
+``radar_dense_path`` for the dense radar kernels and of the ``train``
+phase's timed steps for the others, each main path counted from 0), the
+card's name and power limit as ``nvidia-smi`` prints them, and the result
+line.
 """
 
 from __future__ import annotations
@@ -127,6 +141,7 @@ from skeleton_action_recognition_tpu_torch.models.stgcn import Model
 from skeleton_action_recognition_tpu_torch.ops import (
     build,
     radar,
+    resample,
     sgcn,
     stft,
     stft_logmag,
@@ -162,7 +177,8 @@ KERNEL_REL_TOL = {"f32": 1e-5, "bf16": 2e-2}
 PROB_ATOL = {"f32": 1e-4, "bf16": 5e-2}
 REQUESTS = (1, 7, 64)
 SOURCES = ("sgcn_fwd.cu", "sgcn_bwd.cu", "radar_fwd.cu", "radar_bwd.cu",
-           "stft_fwd.cu", "stft_bwd.cu", "tconv_fwd.cu", "tconv_bwd.cu")
+           "stft_fwd.cu", "stft_bwd.cu", "tconv_fwd.cu", "tconv_bwd.cu",
+           "radar_dense_fwd.cu", "radar_dense_bwd.cu")
 SGCN_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_fwd.cu"
 SGCN_REPLACES = "skeleton_action_recognition_tpu/ops/pallas/sgcn.py:90"
 SGCN_BWD_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_bwd.cu"
@@ -251,9 +267,25 @@ PEAK_BYTES = 3.35e12
 # recomputes those and adds the cotangent chain (94) and the contraction
 # with the tile's monomials (52)
 RADAR_FWD_OPS, RADAR_BWD_OPS = 104, 244
+# the dense kernels' operations of a pair beyond their contractions (which
+# are counted apart): the scatter math and sum, and the recomputed scatter
+# math and cotangent chain (the spline counts without the cubics and the
+# monomial contraction)
+DENSE_FWD_OPS, DENSE_BWD_OPS = RADAR_FWD_OPS - 48, RADAR_BWD_OPS - 48 - 52
+# the dense route (#8) against the spline route (#6), max |diff| / max
+# |spline| of the return. At lambda = 10 both agree to f32 rounding (the
+# spline is an exact factorization of the dense operator): 1e-4. At lambda
+# = 5e-4 the positions are 300-term sums on one side and 4-term cubics on
+# the other, rounded apart by ~1e-7 m, which the phase factor (2.5e4
+# rad/m) turns into ~2.5e-3 rad (1.9e-3 of the return's scale on an
+# H100): 1e-2, the JAX package's Pallas-vs-XLA tolerance for the radar's
+# gradients, which are as far from f32-exact.
+ROUTE_TOL = {5e-4: 1e-2, 10.0: RADAR_TOL[10.0][0]}
 KERNEL_REPLACES = {
     "radar_fwd": "skeleton_action_recognition_tpu/ops/pallas/radar.py:524",
     "radar_bwd": "skeleton_action_recognition_tpu/ops/pallas/radar.py:555",
+    "radar_dense_fwd": "skeleton_action_recognition_tpu/ops/pallas/radar.py:108",
+    "radar_dense_bwd": "skeleton_action_recognition_tpu/ops/pallas/radar.py:289",
     "stft_fwd": "skeleton_action_recognition_tpu/ops/pallas/stft.py:119",
     "stft_bwd": "skeleton_action_recognition_tpu/ops/pallas/stft.py:161",
     "sgcn_fwd_stats": "skeleton_action_recognition_tpu/ops/pallas/sgcn.py:121",
@@ -801,6 +833,8 @@ COUNTERS = {
     "tconv_bwd": tconv.affine_relu_tconv_backward,
     "radar_fwd": radar.spline_radar,
     "radar_bwd": radar.spline_radar_backward,
+    "radar_dense_fwd": radar.dense_radar,
+    "radar_dense_bwd": radar.dense_radar_backward,
     "stft_fwd": stft_logmag.stft_logmag,
     "stft_bwd": stft_logmag.stft_logmag_backward,
 }
@@ -1137,6 +1171,158 @@ def phase_radar_kernel(device):
     return totals, signal
 
 
+DENSE_KERNELS = ("radar_dense_fwd", "radar_dense_bwd")
+
+
+def phase_radar_dense_kernel(device):
+    """Kernels #8 and #9 against their plain versions at the trainer's
+    shape, the dense route against the spline route on the same clips, and
+    the path of the JAX package's ``scripts/bench_spec_decompose.py``
+    (``radar_return_fused`` forward, and backward through autograd to x,
+    loc and lambda); returns the kernels line's entries (lambda = 5e-4)
+    with the path's launches."""
+    x = torch.from_numpy(spec_clips(SPEC_BATCH, SEED)[0]).to(device)
+    op = torch.from_numpy(resample.pad_frames_operator(SPEC_T, SPEC_UP))
+    op = op.to(device)
+    t_out = op.shape[0]
+    t_pad = -(-t_out // radar.TILE) * radar.TILE
+    w = F.pad(op, (0, 0, 0, t_pad - t_out))  # as radar_return_fused pads
+    src, dst = radar.gather_features(x, radar.RADAR_EDGES)
+    c = radar.bone_length_mean_sq(x, op)
+    loc = torch.tensor([0.1, -0.2, 0.3], device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    gre = torch.randn(SPEC_BATCH, t_out, generator=g, device=device)
+    gim = torch.randn(SPEC_BATCH, t_out, generator=g, device=device)
+    em = src.shape[2] // 3
+    pairs = SPEC_BATCH * t_out * em
+    # one product of the operator's rows with one feature set
+    product = 2 * SPEC_BATCH * t_out * SPEC_T * 3 * em
+    entries = {}
+    for lam_v in LAMBDAS:
+        lam = torch.tensor(lam_v, device=device)
+        args = (w, src, dst, c, loc, lam)
+        out = radar.dense_radar(*args, t_out)
+        got = radar.dense_radar_backward(*args, gre, gim, t_out)
+        again = radar.dense_radar_backward(*args, gre, gim, t_out)
+        torch.cuda.synchronize()
+        bit_identical = all(torch.equal(p, q) for p, q in zip(got, again))
+        del again
+        want = radar.dense_radar_reference(*args, t_out)
+        want_bwd = radar.dense_radar_backward_reference(*args, gre, gim,
+                                                        t_out)
+        fwd_err = dict(zip(("re", "im"),
+                           (rel_err(p, q) for p, q in zip(out, want))))
+        bwd_err = dict(zip(("dsrc", "ddst", "dc", "dloc", "dlambda"),
+                           (rel_err(p, q) for p, q in zip(got, want_bwd))))
+        no_nan = not any(torch.isnan(p).any().item() for p in got)
+        spline = radar.radar_return_spline(x, SPEC_UP, loc, lam)
+        route_err = dict(zip(("re", "im"),
+                             (rel_err(p, q) for p, q in zip(out, spline))))
+        record = {}
+        if lam_v == LAMBDAS[0]:
+            fwd_bound = bound(2 * product + DENSE_FWD_OPS * pairs,
+                              nbytes(op, src, dst, c, loc, lam, *out), "f32")
+            bwd_bound = bound(
+                4 * product + DENSE_BWD_OPS * pairs,
+                nbytes(op, src, dst, c, loc, lam, gre, gim, *got), "f32")
+            entries = {
+                "radar_dense_fwd": {
+                    "ms": cuda_ms(lambda: radar.dense_radar(*args, t_out)),
+                    "plain_ms": cuda_ms(lambda: radar.dense_radar_reference(
+                        *args, t_out), 5, 1),
+                    "max_abs_err": max_abs_err(out, want),
+                    "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                    # the two products alone (f32, TF32 off)
+                    "library_ms": cuda_ms(lambda: (torch.matmul(w, src),
+                                                   torch.matmul(w, dst))),
+                },
+                "radar_dense_bwd": {
+                    "ms": cuda_ms(lambda: radar.dense_radar_backward(
+                        *args, gre, gim, t_out)),
+                    "plain_ms": cuda_ms(
+                        lambda: radar.dense_radar_backward_reference(
+                            *args, gre, gim, t_out), 5, 1),
+                    "max_abs_err": max_abs_err(got, want_bwd),
+                    "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                },
+            }
+            # the four products alone: the recomputed positions and the
+            # transposed products with row cotangents of the same shape
+            g_rows = torch.randn(2, SPEC_BATCH, t_pad, 3 * em, generator=g,
+                                 device=device)
+            entries["radar_dense_bwd"]["library_ms"] = cuda_ms(lambda: (
+                torch.matmul(w, src), torch.matmul(w, dst),
+                torch.matmul(w.T, g_rows[0]), torch.matmul(w.T, g_rows[1])))
+            del g_rows
+            record = {f"{k}_{m}": v[m] for k, v in entries.items() for m in v}
+        emit(
+            "radar_dense_kernel", lam=lam_v, n=SPEC_BATCH, t_out=t_out,
+            t_pad=t_pad, rel_err=fwd_err, bwd_rel_err=bwd_err,
+            rel_tol=RADAR_TOL[lam_v], bit_identical=bit_identical,
+            dlambda=got[4].item(), spline_route_rel_err=route_err,
+            spline_route_rel_tol=ROUTE_TOL[lam_v], **record,
+        )
+        check(bit_identical,
+              f"radar_dense_bwd repeats differ at lambda {lam_v}")
+        check(no_nan, f"radar_dense_bwd gave NaN at lambda {lam_v}")
+        fwd_tol, bwd_tol = RADAR_TOL[lam_v]
+        check(max(fwd_err.values()) <= fwd_tol,
+              f"radar_dense_fwd disagrees at lambda {lam_v}: {fwd_err}")
+        check(max(bwd_err.values()) <= bwd_tol,
+              f"radar_dense_bwd disagrees at lambda {lam_v}: {bwd_err}")
+        check(max(route_err.values()) <= ROUTE_TOL[lam_v],
+              f"dense and spline routes differ at lambda {lam_v}: "
+              f"{route_err}")
+        del out, got, want, want_bwd, spline
+    torch.cuda.empty_cache()
+    launches = dense_path(device, x, op, loc)
+    for name in DENSE_KERNELS:
+        entries[name]["launches"] = launches[name]
+    return entries
+
+
+def dense_path(device, x, op, loc):
+    """``radar_return_fused`` as ``scripts/bench_spec_decompose.py`` drives
+    it (the loss ``sum(re) + sum(im)``, lambda = 5e-4), backward through
+    autograd to x, loc and lambda: exactly one launch of each kernel,
+    finite gradients; CUDA-event times of the forward and of forward +
+    backward beside the spline route's. Returns the launches."""
+    xg = x.clone().requires_grad_()
+    locg = loc.clone().requires_grad_()
+    lamg = torch.tensor(LAMBDAS[0], device=device, requires_grad=True)
+    routes = {
+        "dense": lambda: radar.radar_return_fused(xg, op, locg, lamg),
+        "spline": lambda: radar.radar_return_spline(xg, SPEC_UP, locg, lamg),
+    }
+
+    def train(route):
+        xg.grad = locg.grad = lamg.grad = None
+        sum(o.sum() for o in routes[route]()).backward()
+
+    # the main path: the counts cover exactly one forward and its backward
+    reset_launches()
+    re, im = routes["dense"]()
+    forward = read_launches(DENSE_KERNELS)
+    (re.sum() + im.sum()).backward()
+    launches = read_launches(DENSE_KERNELS)
+    grads = {"x": xg.grad, "loc": locg.grad, "lambda": lamg.grad}
+    finite = {k: bool(torch.isfinite(v).all()) for k, v in grads.items()}
+    del re, im
+    times = {}
+    for route in routes:
+        with torch.no_grad():
+            times[f"{route}_forward_ms"] = cuda_ms(routes[route], 10, 2)
+        times[f"{route}_train_ms"] = cuda_ms(lambda: train(route), 10, 2)
+    emit("radar_dense_path", n=SPEC_BATCH, lam=LAMBDAS[0],
+         forward_launches=forward, launches=launches, finite=finite, **times)
+    check(forward == {"radar_dense_fwd": 1, "radar_dense_bwd": 0}
+          and launches == {"radar_dense_fwd": 1, "radar_dense_bwd": 1},
+          f"radar_return_fused launched {forward} forward, {launches} in "
+          f"all; predicted one of each")
+    check(all(finite.values()), f"non-finite dense gradients: {finite}")
+    return launches
+
+
 def phase_stft_kernel(device, radar_re, radar_im):
     """Kernels #10 and #11 against their plain versions at the trainer's
     shape, on seeded normal signals (as the JAX package's STFT tests); and
@@ -1355,6 +1541,7 @@ def main():
     torch.cuda.empty_cache()
     tf32_off()
     spec_totals, (re, im) = phase_radar_kernel(device)
+    dense_totals = phase_radar_dense_kernel(device)
     spec_totals.update(phase_stft_kernel(device, re, im))
     del re, im
     phase_spec_train(device)
@@ -1379,6 +1566,11 @@ def main():
          "replaces": KERNEL_REPLACES[name],
          "launches": train_launches[name], **new_totals[name]}
         for name in ("sgcn_fwd_stats", "tconv_fwd", "tconv_bwd")
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu",
+         "replaces": KERNEL_REPLACES[name], **dense_totals[name]}
+        for name in DENSE_KERNELS
     ]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

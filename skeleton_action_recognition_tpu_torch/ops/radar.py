@@ -1,10 +1,25 @@
-"""Spline-factorized radar return: the CUDA kernels and their plain versions.
+"""The fused radar return: the CUDA kernels and their plain versions.
 
-Counterpart of the spline path of
-``skeleton_action_recognition_tpu/ops/pallas/radar.py``
-(``radar_return_spline`` and its ``_spline_kernel_op``). The skeleton's
-joints are smoothed and upsampled ``num_pad_frames``x by one not-a-knot
-spline (:func:`..resample.spline_tile_plan`), so every padded time row of a
+Counterpart of ``skeleton_action_recognition_tpu/ops/pallas/radar.py``, in
+two halves.
+
+The dense route (``radar_return_fused`` and its ``_kernel_op``): the
+joints are upsampled by a dense ``(T_out, T_in)`` resampling operator
+``w`` (:func:`..resample.pad_frames_operator`), whose rows are contracted
+with every edge endpoint's gathered features ``src``/``dst (N, T_in, 3
+EM)``. ``csrc/radar_dense_fwd.cu`` (kernel #8, replacing ``_radar_kernel``)
+computes the positions of a block of rows as a matrix product in f32 and
+sums every edge-body pair's return; ``csrc/radar_dense_bwd.cu`` (kernel #9,
+replacing ``_radar_bwd_kernel``) is its VJP with respect to ``src``,
+``dst``, ``c``, ``loc`` and ``lambda``, the operator being a constant.
+:class:`DenseRadar` ties them into an autograd Function;
+:func:`radar_return_fused` is the op, with the gather and the bone lengths
+(:func:`bone_length_mean_sq`) in plain torch around it.
+
+The spline route (``radar_return_spline`` and its ``_spline_kernel_op``),
+the spectrogram model's. The skeleton's joints are smoothed and upsampled
+``num_pad_frames``x by one not-a-knot spline
+(:func:`..resample.spline_tile_plan`), so every padded time row of a
 ``tile``-row block evaluates one cubic segment: the kernel's inputs are
 the per-tile segment coefficients of every edge endpoint ``src``/``dst
 (N, num_tiles, 3 * EM, 4 * NS)`` and the per-row one-hot monomials ``e
@@ -47,6 +62,7 @@ from skeleton_action_recognition_tpu_torch.ops.resample import (
 )
 from skeleton_action_recognition_tpu_torch.ops.virtual_radar import (
     gather_edges,
+    safe_norm,
 )
 
 TILE = 512
@@ -198,6 +214,17 @@ def spline_radar_backward_reference(e, src, dst, c, loc, lam, gre, gim,
     return torch.cat(dsrc, 1), torch.cat(ddst, 1), dc, dloc, dlam
 
 
+def _check_tensors(device, **expected):
+    """Raise unless each ``name=(tensor, shape)`` is float32 of that shape
+    on ``device``."""
+    for name, (t, shape) in expected.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, src on {device}")
+
+
 def _check(e, src, dst, c, loc, lam, t_out):
     if e.ndim != 3 or src.ndim != 4 or e.shape[1] != src.shape[3] or (
         e.shape[1] % 4
@@ -210,17 +237,11 @@ def _check(e, src, dst, c, loc, lam, t_out):
     if e.shape[0] != num_tiles or f3 % 3:
         raise ValueError(f"src {tuple(src.shape)} does not fit e "
                          f"{tuple(e.shape)}")
-    expected = {
-        "e": (e, tuple(e.shape)), "src": (src, tuple(src.shape)),
-        "dst": (dst, tuple(src.shape)), "c": (c, (n, f3 // 3)),
-        "loc": (loc, (3,)), "lam": (lam, ()),
-    }
-    for name, (t, shape) in expected.items():
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be float32 {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != src.device:
-            raise ValueError(f"{name} is on {t.device}, src on {src.device}")
+    _check_tensors(
+        src.device, e=(e, tuple(e.shape)), src=(src, tuple(src.shape)),
+        dst=(dst, tuple(src.shape)), c=(c, (n, f3 // 3)), loc=(loc, (3,)),
+        lam=(lam, ()),
+    )
     if not 0 < t_out <= num_tiles * e.shape[2]:
         raise ValueError(f"t_out {t_out} outside the {num_tiles} tiles")
 
@@ -273,12 +294,8 @@ def spline_radar_backward(e, src, dst, c, loc, lam, gre, gim, t_out: int):
     the kernel (counted in ``spline_radar_backward.launches``) or raises.
     The result is the same bit for bit from launch to launch."""
     _check(e, src, dst, c, loc, lam, t_out)
-    for name, g in (("gre", gre), ("gim", gim)):
-        if g.dtype != torch.float32 or tuple(g.shape) != (src.shape[0],
-                                                          t_out):
-            raise ValueError(f"{name} must be float32 "
-                             f"{(src.shape[0], t_out)}, got {g.dtype} "
-                             f"{tuple(g.shape)}")
+    out_shape = (src.shape[0], t_out)
+    _check_tensors(src.device, gre=(gre, out_shape), gim=(gim, out_shape))
     if src.device.type == "cpu":
         return spline_radar_backward_reference(
             e, src, dst, c, loc, lam, gre, gim, t_out
@@ -435,3 +452,266 @@ def radar_return_spline(
     e, src, dst, c, t_out = spline_inputs(x, num_pad_frames, edges, tile,
                                           sigma)
     return spline_radar(e, src, dst, c, radar_location, wavelength, t_out)
+
+
+# ---------------------------------------------------------------------------
+# The dense route: kernels #8 and #9.
+
+# the dense kernels' row block, split of the transposed products, largest
+# number of edge-body pairs and staging (csrc/radar_dense_tile.cuh,
+# radar_dense_bwd.cu), with which the wrappers size their workspaces and
+# shared memory
+_DENSE_ROWS = 64
+_DENSE_SPLIT_ROWS = 4096
+_DENSE_MAX_PAIRS = 64
+_DENSE_DEPTH, _DENSE_STRIDE_A = 16, 68
+# operator rows a plain version evaluates at once (the spline versions'
+# chunk of tiles)
+_PLAIN_ROWS = _PLAIN_TILES * TILE
+
+
+def bone_length_mean_sq(x_raw, pad_operator,
+                        edges: Sequence[Tuple[int, int]] = tuple(RADAR_EDGES),
+                        tile: int = TILE):
+    """``c = (mean_t |bone|)^2 (N, E * M)`` of the edges' bones in joints
+    ``x_raw (N, 3, T_in, V, M)`` upsampled by ``pad_operator (T_out,
+    T_in)``, the mean over the ``T_out`` rows: the JAX package's
+    ``_bone_length_mean_sq``, ``tile`` operator rows at a time, so that the
+    upsampled bones never exist in full. The norm's gradient at zero is
+    zero (all-zero bodies are routine in NTU clips)."""
+    src, dst = gather_edges(x_raw, edges)
+    bone = dst - src  # (N, 3, T_in, E, M)
+    total = 0.0
+    for w_tile in pad_operator.split(tile):
+        b = torch.einsum("ot,nctem->ncoem", w_tile, bone)
+        total = total + safe_norm(b, 1).sum(1)
+    return ((total / pad_operator.shape[0]) ** 2).flatten(1)
+
+
+def _dense_positions(w_rows, feat):
+    """The rows ``w_rows (R, T_in)`` of the operator at the features
+    ``feat (N, T_in, 3 EM)``: the x, y, z coordinates, each ``(N, R,
+    EM)``."""
+    return torch.matmul(w_rows, feat).unflatten(2, (3, -1)).unbind(2)
+
+
+def dense_radar_reference(w, src, dst, c, loc, lam, t_out: int):
+    """Plain PyTorch kernel #8: ``(re, im)``, each ``(N, t_out)``, of the
+    features ``src``/``dst (N, T_in, 3 EM)`` upsampled by the first
+    ``t_out`` rows of ``w (T_w, T_in)``, with ``c (N, EM)``, ``loc (3,)``
+    and the scalar ``lam``. The JAX kernel's formulas, a chunk of rows at a
+    time; the rows past ``t_out`` are never computed."""
+    cb = c[:, None, :]
+    re, im = [], []
+    for r0 in range(0, t_out, _PLAIN_ROWS):
+        rows = w[r0:min(t_out, r0 + _PLAIN_ROWS)]
+        amp, phase = _scatter_fwd(lam, loc, _dense_positions(rows, src),
+                                  _dense_positions(rows, dst), cb)
+        re.append((amp * torch.cos(phase)).sum(2))
+        im.append((amp * torch.sin(phase)).sum(2))
+    return torch.cat(re, 1), torch.cat(im, 1)
+
+
+def dense_radar_backward_reference(w, src, dst, c, loc, lam, gre, gim,
+                                   t_out: int):
+    """Plain PyTorch kernel #9: the cotangents ``(dsrc, ddst, dc, dloc,
+    dlam)`` of :func:`dense_radar_reference` from ``(gre, gim) (N,
+    t_out)``: the JAX kernel's ``_scatter_bwd_core`` per row and pair, and
+    the per-row cotangents contracted with the operator's rows. (Autograd
+    through the plain forward gives NaN where ``c = 0``.)"""
+    cb = c[:, None, :]
+    dsrc, ddst = torch.zeros_like(src), torch.zeros_like(dst)
+    dc = torch.zeros_like(c)
+    dloc = torch.zeros_like(loc)
+    dlam = torch.zeros_like(lam)
+    for r0 in range(0, t_out, _PLAIN_ROWS):
+        r1 = min(t_out, r0 + _PLAIN_ROWS)
+        rows = w[r0:r1]
+        g_s, g_d, g_c, g_l, g_lam = _scatter_bwd(
+            lam, loc, _dense_positions(rows, src),
+            _dense_positions(rows, dst), cb, gre[:, r0:r1, None],
+            gim[:, r0:r1, None],
+        )
+        dsrc = dsrc + torch.matmul(rows.T, torch.cat(g_s, 2))
+        ddst = ddst + torch.matmul(rows.T, torch.cat(g_d, 2))
+        dc = dc + g_c.sum(1)
+        dloc = dloc + torch.stack([g.sum() for g in g_l])
+        dlam = dlam + g_lam.sum()
+    return dsrc, ddst, dc, dloc, dlam
+
+
+def _check_dense(w, src, dst, c, loc, lam, t_out):
+    if w.ndim != 2 or src.ndim != 3 or w.shape[1] != src.shape[1] or (
+        src.shape[2] % 3
+    ):
+        raise ValueError(
+            f"w must be (T, T_in) and src (N, T_in, 3 EM), got "
+            f"{tuple(w.shape)} and {tuple(src.shape)}"
+        )
+    n, _, f3 = src.shape
+    _check_tensors(
+        src.device, w=(w, tuple(w.shape)), src=(src, tuple(src.shape)),
+        dst=(dst, tuple(src.shape)), c=(c, (n, f3 // 3)), loc=(loc, (3,)),
+        lam=(lam, ()),
+    )
+    if not 0 < t_out <= w.shape[0]:
+        raise ValueError(f"t_out {t_out} outside the operator's "
+                         f"{w.shape[0]} rows")
+
+
+def _padded_pairs(em):
+    """EM rounded up to the kernels' pair groups of 4."""
+    return -(-em // 4) * 4
+
+
+def _dense_launch_checks(name, em, **tensors):
+    """What the dense kernels take beyond :func:`_check_dense`: contiguous
+    CUDA tensors, at most ``_DENSE_MAX_PAIRS`` pairs, a block's shared
+    memory."""
+    check_cuda(name, **tensors)
+    if em > _DENSE_MAX_PAIRS:
+        raise ValueError(f"the dense radar kernels take at most "
+                         f"{_DENSE_MAX_PAIRS} edge-body pairs, got {em}")
+    emp = _padded_pairs(em)
+    threads = 4 * emp
+    staged = 2 * _DENSE_DEPTH * (_DENSE_STRIDE_A + 6 * emp)  # two steps
+    # after the contraction the backward keeps the positions (6, 64, emp +
+    # 1) and its sums there
+    positions = 6 * _DENSE_ROWS * (emp + 1) + 4 * emp + 4 * threads
+    _check_smem(4 * max(staged, positions))
+
+
+def _dense_forward(w, src, dst, c, loc, lam, t_out):
+    """``(re, im)`` through kernel #8 on CUDA, the plain version on the
+    CPU."""
+    if src.device.type == "cpu":
+        return dense_radar_reference(w, src, dst, c, loc, lam, t_out)
+    n, t_in, f3 = src.shape
+    _dense_launch_checks("dense radar", f3 // 3, w=w, src=src, dst=dst, c=c,
+                         loc=loc, lam=lam)
+    re = torch.empty((n, t_out), dtype=torch.float32, device=src.device)
+    im = torch.empty_like(re)
+    launch(
+        kernel_function("radar_dense_fwd.cu", "radar_dense_fwd_f32", 8, 4),
+        "radar_dense_fwd", src.device,
+        w.data_ptr(), src.data_ptr(), dst.data_ptr(), c.data_ptr(),
+        loc.data_ptr(), lam.data_ptr(), re.data_ptr(), im.data_ptr(),
+        n, t_in, f3 // 3, t_out,
+    )
+    dense_radar.launches += 1
+    return re, im
+
+
+def dense_radar_backward(w, src, dst, c, loc, lam, gre, gim, t_out: int):
+    """Backward of :func:`dense_radar` through kernel #9: ``(dsrc, ddst,
+    dc, dloc, dlam)`` as :func:`dense_radar_backward_reference` returns
+    them. A CPU tensor goes to that plain version; a CUDA tensor launches
+    the kernel (counted in ``dense_radar_backward.launches``) or raises.
+    The result is the same bit for bit from launch to launch. At the
+    trainer's shape the kernel takes a 1.5 GB workspace: the rows'
+    cotangents ``(N, t_out, 6 EM)`` and the split products ``(19, N, T_in,
+    6 EM)``."""
+    _check_dense(w, src, dst, c, loc, lam, t_out)
+    out_shape = (src.shape[0], t_out)
+    _check_tensors(src.device, gre=(gre, out_shape), gim=(gim, out_shape))
+    if src.device.type == "cpu":
+        return dense_radar_backward_reference(w, src, dst, c, loc, lam, gre,
+                                              gim, t_out)
+    n, t_in, f3 = src.shape
+    em = f3 // 3
+    _dense_launch_checks("dense radar", em, w=w, src=src, dst=dst, c=c,
+                         loc=loc, lam=lam, gre=gre, gim=gim)
+    cols = 6 * _padded_pairs(em)
+    tiles = -(-t_out // _DENSE_ROWS)
+    splits = -(-t_out // _DENSE_SPLIT_ROWS)
+    dsrc, ddst = torch.empty_like(src), torch.empty_like(dst)
+    dc = torch.empty_like(c)
+    dloc, dlam = torch.empty_like(loc), torch.empty_like(lam)
+
+    def workspace(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=src.device)
+
+    g = workspace(n, t_out, cols)
+    ws_part = workspace(splits, n, t_in, cols)
+    ws_dc = workspace(n, tiles, em)
+    ws_s = workspace(n, tiles, 4)
+    launch(
+        kernel_function("radar_dense_bwd.cu", "radar_dense_bwd_f32", 17, 4),
+        "radar_dense_bwd", src.device,
+        w.data_ptr(), src.data_ptr(), dst.data_ptr(), c.data_ptr(),
+        loc.data_ptr(), lam.data_ptr(), gre.data_ptr(), gim.data_ptr(),
+        dsrc.data_ptr(), ddst.data_ptr(), dc.data_ptr(), dloc.data_ptr(),
+        dlam.data_ptr(), g.data_ptr(), ws_part.data_ptr(), ws_dc.data_ptr(),
+        ws_s.data_ptr(), n, t_in, em, t_out,
+    )
+    dense_radar_backward.launches += 1
+    return dsrc, ddst, dc, dloc, dlam
+
+
+class DenseRadar(torch.autograd.Function):
+    """Kernel #8 forward, kernel #9 backward; the operator ``w`` gets no
+    gradient (a constant, as in the JAX VJP)."""
+
+    @staticmethod
+    def forward(ctx, w, src, dst, c, loc, lam, t_out):
+        ctx.save_for_backward(w, src, dst, c, loc, lam)
+        ctx.t_out = t_out
+        return _dense_forward(w, src, dst, c, loc, lam, t_out)
+
+    @staticmethod
+    def backward(ctx, gre, gim):
+        grads = dense_radar_backward(
+            *ctx.saved_tensors, gre.contiguous(), gim.contiguous(),
+            ctx.t_out,
+        )
+        return (None, *grads, None)
+
+
+def dense_radar(w, src, dst, c, loc, lam, t_out: int):
+    """The radar return ``(re, im)``, each ``(N, t_out)``, through the
+    dense CUDA kernels, differentiable in ``src``, ``dst``, ``c``, ``loc``
+    and ``lam``.
+
+    Same arguments and result as :func:`dense_radar_reference`. CPU
+    tensors go to the plain versions; CUDA tensors launch kernel #8
+    (counted in ``dense_radar.launches``) and, in the backward, kernel #9,
+    or raise."""
+    _check_dense(w, src, dst, c, loc, lam, t_out)
+    return DenseRadar.apply(w, src, dst, c, loc, lam, t_out)
+
+
+dense_radar.launches = 0
+dense_radar_backward.launches = 0
+
+
+def radar_return_fused(
+    x_raw,
+    pad_operator,
+    radar_location,
+    wavelength,
+    edges: Sequence[Tuple[int, int]] = tuple(RADAR_EDGES),
+    tile: int = TILE,
+):
+    """Radar return ``(re, im)``, each ``(N, T_out)``, of joints ``x_raw
+    (N, 3, T_in, V, M)`` upsampled by the dense ``pad_operator (T_out,
+    T_in)`` (:func:`..resample.pad_frames_operator`), seen from
+    ``radar_location (3,)`` at the scalar ``wavelength``: the JAX package's
+    ``radar_return_fused``, with its signature and result.
+
+    The operator's rows are padded to a multiple of ``tile`` (which sets
+    only that padding: the result does not depend on it) and the kernel
+    stage :func:`dense_radar` computes the first ``T_out``. Differentiable
+    in ``x_raw``, the location and the wavelength, through the gather and
+    the bone lengths :func:`bone_length_mean_sq` (plain torch, as they are
+    plain autodiff in JAX); the operator is a constant."""
+    device = x_raw.device
+    w = torch.as_tensor(pad_operator, dtype=torch.float32, device=device)
+    t_out = w.shape[0]
+    t_pad = -(-t_out // tile) * tile
+    src, dst = gather_features(x_raw, edges)
+    c = bone_length_mean_sq(x_raw, w, edges, tile)
+    w = torch.nn.functional.pad(w.detach(), (0, 0, 0, t_pad - t_out))
+    loc = torch.as_tensor(radar_location, dtype=torch.float32, device=device)
+    lam = torch.as_tensor(wavelength, dtype=torch.float32, device=device)
+    return dense_radar(w, src.contiguous(), dst.contiguous(), c.contiguous(),
+                       loc, lam, t_out)

@@ -1,15 +1,17 @@
 """VirtualRadar: the radar return of a skeleton, in plain torch.
 
 Counterpart of ``skeleton_action_recognition_tpu/ops/virtual_radar.py``
-(``radar_return``, ``radar_return_upsampled``). Each bone (edge) is an
-ellipsoid scatterer: its radar-cross-section amplitude and round-trip
-phase ``4 pi d / lambda`` are computed per time step, and the complex
-returns of all edges and bodies are summed into one signal. These are the
-spectrogram model's routes without the fused kernel: ``num_pad_frames <=
-1`` (:func:`radar_return`) and ``use_pallas=False``
-(:func:`radar_return_upsampled`). Autograd differentiates them; the norms
-have a zero gradient at zero, because all-zero second bodies are routine
-in NTU clips.
+(``radar_return``, ``radar_return_upsampled``,
+``virtual_radar_spectrogram``). Each bone (edge) is an ellipsoid
+scatterer: its radar-cross-section amplitude and round-trip phase ``4 pi d
+/ lambda`` are computed per time step, and the complex returns of all
+edges and bodies are summed into one signal. These are the spectrogram
+model's routes without the fused kernel: ``num_pad_frames <= 1``
+(:func:`radar_return`) and ``use_pallas=False``
+(:func:`radar_return_upsampled`); :func:`virtual_radar_spectrogram` is the
+whole layer on raw frames as one function. Autograd differentiates them;
+the norms have a zero gradient at zero, because all-zero second bodies are
+routine in NTU clips.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     RADAR_EDGES,
 )
+from skeleton_action_recognition_tpu_torch.ops import stft
 
 
 @functools.lru_cache(maxsize=8)
@@ -142,3 +145,31 @@ def radar_return_upsampled(
     ]
     return (torch.cat([p[0] for p in parts], 1),
             torch.cat([p[1] for p in parts], 1))
+
+
+def virtual_radar_spectrogram(
+    x,
+    radar_location,
+    wavelength,
+    cos_basis=None,
+    sin_basis=None,
+    edges: Sequence[Tuple[int, int]] = tuple(RADAR_EDGES),
+    n_fft: int = 256,
+    hop_length: int = 16,
+):
+    """The VirtualRadar forward on raw frames: joints ``x (N, 3, T, V, M)``
+    -> the log-magnitude spectrogram ``(N, n_fft, T // hop_length + 1)``,
+    zero Doppler centered (the JAX package's ``virtual_radar_spectrogram``).
+    :func:`radar_return`, then :func:`..stft.stft_complex` with the
+    windowed Fourier bases ``cos_basis``/``sin_basis`` (Hann,
+    :func:`..stft.stft_basis`, where not given), then
+    :func:`..stft.log_magnitude`."""
+    if cos_basis is None or sin_basis is None:
+        cos_np, sin_np = stft.stft_basis(n_fft)
+        if cos_basis is None:
+            cos_basis = torch.tensor(cos_np, device=x.device)
+        if sin_basis is None:
+            sin_basis = torch.tensor(sin_np, device=x.device)
+    re, im = radar_return(x, radar_location, wavelength, edges)
+    s_re, s_im = stft.stft_complex(re, im, hop_length, cos_basis, sin_basis)
+    return stft.log_magnitude(s_re, s_im)
