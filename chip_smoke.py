@@ -16,8 +16,8 @@ so the exit code is not 0.
    register and shared-memory reports).
 3. ``kernel``: the CUDA spatial graph-conv kernel against its plain PyTorch
    version at the six (T, C_in, C_out) shapes of the ten ST-GCN blocks, at
-   NM=128 (64 clips x 2 bodies), in f32 and bf16: error and CUDA-event
-   times of both.
+   NM=128 (64 clips x 2 bodies), in f32 and bf16: error, two launches bit
+   for bit, and CUDA-event times of both.
 4. ``kernel_bwd``: the backward kernel against its plain version at the
    six shapes, NM=256 (the 128-clip training batch), f32 and bf16: the
    relative error of dx, dW and db, two launches bit for bit, CUDA-event
@@ -42,14 +42,16 @@ so the exit code is not 0.
    timed in turns on the host clock (the predictor returns numpy, so each
    request ends synchronized).
 7. ``train``: training steps of the full-width ST-GCN at the JAX bench's
-   shape (B=128, T=300, remat off) in four configurations, timed in turns
+   shape (B=128, T=300, remat off) in five configurations, timed in turns
    (10 steps after 3 warm-up, each ending synchronized), in bf16 and in
    f32 with TF32 off (B=128 if it fits, else 64 or 32): unfused, the
-   spatial conv fused on every block, and that with ``sgcn_stats`` or
-   with ``fused_tconv``. Step time, clips/s, peak memory; the loss finite
-   and falling; each step's launches exactly ``STEP_LAUNCHES``. Then
-   profiler traces of 3 bf16 steps, fused and fused_tconv: device time by
-   kernel name and the device's idle share.
+   spatial conv fused on every block, that with ``sgcn_stats`` or with
+   ``fused_tconv``, and fused on the six blocks of 128 and more filters
+   (the CLI's default ``--fused-sgcn-min-channels 128``, ``bench.py``'s).
+   Step time, clips/s, peak memory; the loss finite and falling; each
+   step's launches exactly ``STEP_LAUNCHES``. Then profiler traces of 3
+   bf16 steps, unfused, fused and fused_tconv: device time by kernel name
+   and the device's idle share.
 8. ``cli``: ``cli.main_gnn.main`` on a seeded synthetic TFRecord set
    (T=300, 60 classes, 48 training and 16 test clips, written with the
    port's writer), ``--fused-sgcn --fused-sgcn-min-channels 0``, default
@@ -96,12 +98,15 @@ so the exit code is not 0.
 
 Then the kernels line (``sgcn_fwd`` ``ms``/``plain_ms``: f32 time of the
 ten spatial convs of one 64-clip request; ``sgcn_bwd`` and
-``sgcn_fwd_stats``: f32 time of the ten blocks' calls at NM=256;
+``sgcn_fwd_stats``: f32 time of the ten blocks' calls at NM=256; these
+three carry the bf16 kernel's numbers beside as ``bf16_ms``,
+``bf16_plain_ms``, ``bf16_bound_ms``, ``bf16_bound_by`` and
+``bf16_max_abs_err``;
 ``tconv_*``: f32 time of the eight stride-1 blocks' calls at NM=256, with
 cuDNN's conv alone as ``library_ms``; ``radar_*``/``stft_*``: one call at
 16 clips, lambda = 5e-4, with the operator products alone as the dense
 radar kernels' ``library_ms``; ``bound_ms``: the least time of the same
-work at the card's published f32 peak and memory rate; ``launches``: the
+work at the card's published f32 (bf16) peak and memory rate; ``launches``: the
 counts of the ``cli`` run for ``sgcn_fwd``/``sgcn_bwd``, of the
 ``spec_cli`` run for the spline radar and STFT kernels, of
 ``radar_dense_path`` for the dense radar kernels and of the ``train``
@@ -199,6 +204,9 @@ TRAIN_CONFIGS = {
     "fused": dict(fused_sgcn=True),
     "sgcn_stats": dict(fused_sgcn=True, sgcn_stats=True),
     "fused_tconv": dict(fused_sgcn=True, fused_tconv=True),
+    # the CLI's default --fused-sgcn-min-channels and bench.py's: the six
+    # blocks of 128 and 256 filters fused
+    "fused_min128": dict(fused_sgcn=True, fused_sgcn_min_channels=128),
 }
 STEP_LAUNCHES = {
     "unfused": {},
@@ -206,6 +214,7 @@ STEP_LAUNCHES = {
     "sgcn_stats": {"sgcn_fwd_stats": 10, "sgcn_bwd": 10},
     "fused_tconv": {"sgcn_fwd": 10, "sgcn_bwd": 10, "tconv_fwd": 8,
                     "tconv_bwd": 8},
+    "fused_min128": {"sgcn_fwd": 6, "sgcn_bwd": 6},
 }
 TRAIN_KERNELS = ("sgcn_fwd", "sgcn_fwd_stats", "sgcn_bwd", "tconv_fwd",
                  "tconv_bwd")
@@ -218,6 +227,7 @@ EVAL_OPTIONS = {
 # ST-GCN configurations, and the loss falls over 13
 TRAIN_STEPS, TRAIN_WARMUP = 10, 3
 PROFILE_STEPS = 3
+PROFILE_CONFIGS = ("unfused", "fused", "fused_tconv")
 CLI_CLIPS = {"train": 48, "val": 16}
 CLI_BATCH = 16
 # the spectrogram path: the JAX bench's SPEC_BATCH, T=300 upsampled 250x
@@ -368,6 +378,13 @@ class Totals:
         }
 
 
+def dtype_entries(totals):
+    """The kernels-line numbers of a spatial-conv kernel: f32 under the
+    contract's keys, bf16 beside them as ``bf16_<key>``."""
+    return {**totals["f32"].entry(),
+            **{f"bf16_{k}": v for k, v in totals["bf16"].entry().items()}}
+
+
 def sgcn_flops(frames, c_in, c_out, a, backward=False):
     """Operations of the spatial graph conv over ``frames`` frames: the 1x1
     conv into 3 C_out channels and the contraction with the adjacency
@@ -422,7 +439,7 @@ def phase_build():
 def phase_kernel(device):
     a = torch.from_numpy(spatial_adjacency()).to(device)
     g = torch.Generator(device=device).manual_seed(SEED)
-    totals = Totals()
+    totals = {name: Totals() for name in DTYPES}
     for name, dtype in DTYPES.items():
         for (t, c_in, c_out), blocks in BLOCK_SHAPES:
             x = torch.randn(NM, t, 25, c_in, generator=g, device=device)
@@ -431,6 +448,8 @@ def phase_kernel(device):
             w *= (2.0 / c_in) ** 0.5
             b = 0.1 * torch.randn(3 * c_out, generator=g, device=device)
             out = sgcn.fused_graph_conv(x, w, b, a)
+            bit_identical = torch.equal(out, sgcn.fused_graph_conv(x, w, b,
+                                                                   a))
             torch.cuda.synchronize()
             ref = sgcn.graph_conv_reference(x, w, b, a)
             abs_err = (out.float() - ref.float()).abs().max().item()
@@ -443,25 +462,27 @@ def phase_kernel(device):
             emit(
                 "kernel", dtype=name, nm=NM, t=t, c_in=c_in, c_out=c_out,
                 max_abs_err=abs_err, rel_err=rel_err,
-                rel_tol=KERNEL_REL_TOL[name], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
+                rel_tol=KERNEL_REL_TOL[name], bit_identical=bit_identical,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by,
             )
+            check(bit_identical, f"sgcn kernel repeats differ at {name} "
+                  f"{(t, c_in, c_out)}")
             check(
                 rel_err <= KERNEL_REL_TOL[name],
                 f"sgcn kernel disagrees at {name} {(t, c_in, c_out)}: "
                 f"rel err {rel_err}",
             )
-            if name == "f32":
-                totals.add({"ms": ms, "plain_ms": plain_ms}, abs_err,
-                           bound_ms, bound_by, blocks)
+            totals[name].add({"ms": ms, "plain_ms": plain_ms}, abs_err,
+                             bound_ms, bound_by, blocks)
             del x, out, ref
-    return totals.entry()
+    return dtype_entries(totals)
 
 
 def phase_kernel_bwd(device):
     a = torch.from_numpy(spatial_adjacency()).to(device)
     g = torch.Generator(device=device).manual_seed(SEED + 1)
-    totals = Totals()
+    totals = {name: Totals() for name in DTYPES}
     for name, dtype in DTYPES.items():
         for (t, c_in, c_out), blocks in BLOCK_SHAPES:
             x = torch.randn(TRAIN_NM, t, 25, c_in, generator=g, device=device)
@@ -512,12 +533,11 @@ def phase_kernel_bwd(device):
                 f"sgcn_bwd disagrees at {name} {(t, c_in, c_out)}: "
                 f"rel err {rel_err}",
             )
-            if name == "f32":
-                totals.add({"ms": ms, "plain_ms": plain_ms}, max(abs_err),
-                           bound_ms, bound_by, blocks)
+            totals[name].add({"ms": ms, "plain_ms": plain_ms},
+                             max(abs_err), bound_ms, bound_by, blocks)
             del x, gout
             torch.cuda.empty_cache()
-    return totals.entry()
+    return dtype_entries(totals)
 
 
 def channel_sum_errors(got, want, out, ref):
@@ -545,7 +565,7 @@ def phase_kernel_stats(device):
     bit for bit, CUDA-event times."""
     a = torch.from_numpy(spatial_adjacency()).to(device)
     g = torch.Generator(device=device).manual_seed(SEED + 6)
-    totals = Totals()
+    totals = {name: Totals() for name in DTYPES}
     for name, dtype in DTYPES.items():
         for (t, c_in, c_out), blocks in BLOCK_SHAPES:
             x = torch.randn(TRAIN_NM, t, 25, c_in, generator=g,
@@ -585,12 +605,11 @@ def phase_kernel_stats(device):
                             else STATS_PLAIN_TOL[name])
                       for k, v in sums.items()),
                   f"sgcn_fwd_stats sums disagree at {where}: {sums}")
-            if name == "f32":
-                totals.add({"ms": ms, "plain_ms": plain_ms}, abs_err,
-                           bound_ms, bound_by, blocks)
+            totals[name].add({"ms": ms, "plain_ms": plain_ms}, abs_err,
+                             bound_ms, bound_by, blocks)
             del x, got
             torch.cuda.empty_cache()
-    return totals.entry()
+    return dtype_entries(totals)
 
 
 def tconv_inputs(t, c, dtype, device, g):
@@ -867,8 +886,9 @@ def train_runs(device, name, batch):
         model = Model(
             num_classes=60,
             dtype=torch.bfloat16 if name == "bf16" else None,
-            fused_sgcn_min_channels=0, remat=False, device=device,
-            generator=torch.Generator().manual_seed(SEED), **options,
+            remat=False, device=device,
+            generator=torch.Generator().manual_seed(SEED),
+            **{"fused_sgcn_min_channels": 0, **options},
         )
         step = make_train_step(model, TFSGD(model.parameters(), 0.01), batch)
 
@@ -976,7 +996,7 @@ def phase_train(device):
     """bf16 and then f32 training; returns the launches of all timed
     steps."""
     runs, launches = time_training(device, "bf16", TRAIN_BATCH)
-    for config in ("fused", "fused_tconv"):
+    for config in PROFILE_CONFIGS:
         emit("profile", dtype="bf16", config=config, batch=TRAIN_BATCH,
              steps=PROFILE_STEPS,
              **device_profile(runs[config], PROFILE_STEPS))

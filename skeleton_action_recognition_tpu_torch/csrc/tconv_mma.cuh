@@ -8,12 +8,7 @@
 // FLOP per byte moved, so operations at C >= 64; in practice the staging of
 // the operands through shared memory and the per-element affine on load.
 //
-// Fragments (PTX ISA, mma.m16n8k16 with .bf16 operands): lane = 4 g + q;
-// A (16 x 16, row-major): a0 = A[g][2q, 2q+1], a1 = A[g+8][2q, 2q+1],
-// a2 = A[g][2q+8, 2q+9], a3 = A[g+8][2q+8, 2q+9]; B (16 x 8): b0 =
-// B[2q, 2q+1][g], b1 = B[2q+8, 2q+9][g]; C (16 x 8, f32): c0, c1 =
-// C[g][2q, 2q+1], c2, c3 = C[g+8][2q, 2q+1]; the lower half of a 32-bit
-// register holds the element of the lower index.
+// Fragments: as mma_bf16.cuh states (lane = 4 g + q).
 //
 // mma_tile_kernel: one block per (clip, MT rows of the clip, CT output
 // channels); the rows t * 25 + v of a clip are contiguous, so a tap dt is a
@@ -43,9 +38,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
 #include "tconv_tile.cuh"
 
 namespace tconv_mma {
+
+using mma_bf16::lane_group_sum;
+using mma_bf16::mma;
 
 using tconv::HALO;
 using tconv::KS;
@@ -66,15 +65,6 @@ struct TileSmem {
   float red[2][4][CT];                 // [sum][warp row][channel]
 };
 
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ unsigned load_pair(const bf16* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
@@ -84,14 +74,6 @@ __device__ __forceinline__ unsigned gather_pair(const bf16* p) {
   const unsigned short lo = *reinterpret_cast<const unsigned short*>(p);
   const unsigned short hi = *reinterpret_cast<const unsigned short*>(p + 1);
   return unsigned(lo) | (unsigned(hi) << 16);
-}
-
-// Sum v over the 8 lanes that share lane % 4, in a fixed order.
-__device__ __forceinline__ float lane_group_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 16);
-  return v;
 }
 
 // Blocks of mma_tile_kernel: grid.x (also the number of partials), grid.y.
@@ -182,7 +164,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma(acc[mt][nt], af[mt], bfr[nt]);
+          for (int nt = 0; nt < 4; ++nt)
+            mma(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
       }
     }
   }
@@ -342,8 +325,7 @@ __global__ void __launch_bounds__(THREADS)
             // r + 25 dt
             const bf16* pb =
                 sm.h + (wn * 16 + nt * 8 + g) * LDH + kk + 2 * q + dt * V;
-            const unsigned b[2] = {gather_pair(pb), gather_pair(pb + 8)};
-            mma(acc[dt][nt], af, b);
+            mma(acc[dt][nt], af, gather_pair(pb), gather_pair(pb + 8));
           }
         }
       }

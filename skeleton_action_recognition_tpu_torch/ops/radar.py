@@ -57,6 +57,7 @@ from skeleton_action_recognition_tpu_torch.ops.build import (
     kernel_function,
     launch,
 )
+from skeleton_action_recognition_tpu_torch.ops.precision import einsum_f32
 from skeleton_action_recognition_tpu_torch.ops.resample import (
     spline_tile_plan,
 )
@@ -154,7 +155,7 @@ def _scatter_bwd(lam, loc, s, d, c, gre, gim):
 def _positions(coef, e):
     """``coef (N, J, 3 EM, ns4)`` at the rows of ``e (J, ns4, tile)``: the
     x, y, z coordinates, each ``(N, J, EM, tile)``."""
-    pos = torch.einsum("njfq,jqr->njfr", coef, e)
+    pos = einsum_f32("njfq,jqr->njfr", coef, e)
     return pos.unflatten(2, (3, -1)).unbind(2)
 
 
@@ -425,7 +426,7 @@ def spline_inputs(x, num_pad_frames: int,
     n, _, f = src.shape
 
     def tiled(feat):
-        coef = torch.einsum("qt,ntf->nqf", cc, feat)  # (N, nseg * 4, 3 EM)
+        coef = einsum_f32("qt,ntf->nqf", cc, feat)  # (N, nseg * 4, 3 EM)
         coef = coef.reshape(n, t_in - 1, 4, f)[:, tile_seg]
         return coef.reshape(n, num_tiles, ns4, f).transpose(2, 3).contiguous()
 

@@ -17,7 +17,9 @@ The unfused versions write ``z`` (forward) and ``dz`` (backward), three
 times the output, to device memory and read them back; in bf16 at the
 model's widths that traffic bounds them on the H100 (in f32 without TF32
 both paths are bound by CUDA-core FLOPs). The kernels keep ``z`` and ``dz``
-in shared memory (see the sources' notes).
+in shared memory; the f32 kernels compute on the CUDA cores (never TF32),
+the bf16 ones run every product, the adjacency's too, on the tensor cores
+(``mma.sync``, ``csrc/mma_bf16.cuh``; see the sources' notes).
 
 :class:`FusedGraphConv` ties the two into an autograd Function. Like the
 JAX VJP it saves its input ``x`` (not ``z``) and treats the adjacency as a
@@ -42,16 +44,18 @@ from skeleton_action_recognition_tpu_torch.ops.build import (
 
 K_PARTS = 3
 NUM_JOINTS = 25
-# csrc/sgcn_fwd.cu's frames per block: the stats workspace holds one
-# partial per block
-_FWD_FRAMES = 2
-# csrc/sgcn_bwd.cu's dW tiling: frames per chunk, output and input channels
-# per block. The wrapper sizes the workspace from them.
-_DW_FRAMES, _DW_OT, _DW_IT = 2, 32, 64
-# dW blocks to aim for: four per SM of the H100's 132, so that every SM has
-# work; the split count depends on the shapes alone, which keeps the sums'
-# order, and so the result, the same from launch to launch
-_DW_TARGET_BLOCKS = 4 * 132
+# csrc/sgcn_fwd.cu's frames per block row, by dtype (f32 on the CUDA
+# cores, bf16 on the tensor cores): the stats workspace holds one partial
+# per block row
+_FWD_FRAMES = {torch.float32: 2, torch.bfloat16: 5}
+# csrc/sgcn_bwd.cu's dW tiling, by dtype: frames per chunk, output and input
+# channels per block, and the blocks to aim for (f32: four per SM of the
+# H100's 132; bf16: one wave of two per SM, the most its 112 KB of shared
+# memory a block lets an SM hold). The wrapper sizes the workspace from
+# them. The split count depends on the shapes alone, which keeps the sums'
+# order, and so the result, the same from launch to launch.
+_DW_TILES = {torch.float32: (2, 32, 64, 4 * 132),
+             torch.bfloat16: (5, 32, 128, 2 * 132)}
 
 
 def graph_conv_reference(x, weight, bias, a):
@@ -147,9 +151,10 @@ def _forward(x, weight, bias, a):
     out = torch.empty((nm, t, v, c_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    w = kernel_weight(weight, x.dtype)
     launch(
         _kernels("sgcn_fwd.cu", 5, 3)[x.dtype], "sgcn_fwd", x.device,
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), a.data_ptr(),
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), a.data_ptr(),
         out.data_ptr(), nm * t, c_in, c_out,
     )
     fused_graph_conv.launches += 1
@@ -168,27 +173,42 @@ def _forward_stats(x, weight, bias, a):
     sums = torch.zeros(2 * c_out, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out, sums[:c_out], sums[c_out:]
-    blocks = -(-(nm * t) // _FWD_FRAMES)
-    ws = torch.empty(blocks * 2 * c_out, dtype=torch.float32,
-                     device=x.device)
+    ws = torch.empty(forward_tiles(nm * t, x.dtype) * 2 * c_out,
+                     dtype=torch.float32, device=x.device)
+    w = kernel_weight(weight, x.dtype)
     launch(
         _kernels("sgcn_fwd.cu", 7, 3, "sgcn_fwd_stats")[x.dtype],
         "sgcn_fwd_stats", x.device,
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), a.data_ptr(),
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), a.data_ptr(),
         out.data_ptr(), ws.data_ptr(), sums.data_ptr(), nm * t, c_in, c_out,
     )
     fused_graph_conv_stats.launches += 1
     return out, sums[:c_out], sums[c_out:]
 
 
-def backward_splits(frames: int, c_in: int, c_out: int) -> int:
-    """How many row splits ``csrc/sgcn_bwd.cu`` sums ``dW``/``db`` over:
-    enough blocks to fill the card, at least one chunk of frames each. The
-    workspace holds one ``(K * C_out, C_in + 1)`` f32 partial per split,
-    at most ~13 MB at the model's shapes."""
-    tiles = -(-c_out // _DW_OT) * -(-c_in // _DW_IT)
-    return max(1, min(-(-_DW_TARGET_BLOCKS // tiles),
-                      -(-frames // _DW_FRAMES)))
+def forward_tiles(frames: int, dtype) -> int:
+    """Block rows of ``csrc/sgcn_fwd.cu`` over ``frames`` frames: the
+    stats entry's partials, one ``2 * C_out`` f32 row each."""
+    return -(-frames // _FWD_FRAMES[dtype])
+
+
+def backward_splits(frames: int, c_in: int, c_out: int,
+                    dtype=torch.float32) -> int:
+    """How many row splits ``csrc/sgcn_bwd.cu`` sums ``dW``/``db`` over
+    for ``dtype``: as many blocks as the card runs at once and no more
+    (a second, partial wave would double the time), at least one chunk of
+    frames each. The workspace holds one ``(K * C_out, C_in + 1)`` f32
+    partial per split, at most ~14 MB at the model's shapes."""
+    chunk, ot, it, target = _DW_TILES[dtype]
+    tiles = -(-c_out // ot) * -(-c_in // it)
+    return max(1, min(target // tiles, -(-frames // chunk)))
+
+
+def kernel_weight(weight, dtype):
+    """The weight as the kernels of ``dtype`` take it: the f32 kernels read
+    it as it is; the bf16 ones read it cast to bf16 once per call (the
+    rounding the TPU kernel does on load)."""
+    return weight.to(dtype).contiguous()
 
 
 def fused_graph_conv_backward(x, weight, a, g):
@@ -220,14 +240,15 @@ def fused_graph_conv_backward(x, weight, a, g):
     db = torch.empty(weight.shape[0], dtype=torch.float32, device=x.device)
     if frames == 0:
         return dx, dw.zero_(), db.zero_()
-    splits = backward_splits(frames, c_in, c_out)
+    splits = backward_splits(frames, c_in, c_out, x.dtype)
     ws = torch.empty(
         splits * weight.shape[0] * (c_in + 1), dtype=torch.float32,
         device=x.device,
     )
+    w = kernel_weight(weight, x.dtype)
     launch(
         _kernels("sgcn_bwd.cu", 8, 4)[x.dtype], "sgcn_bwd", x.device,
-        x.data_ptr(), g.data_ptr(), weight.data_ptr(), a.data_ptr(),
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), a.data_ptr(),
         dx.data_ptr(), dw.data_ptr(), db.data_ptr(), ws.data_ptr(),
         frames, c_in, c_out, splits,
     )

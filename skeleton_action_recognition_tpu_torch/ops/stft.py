@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from skeleton_action_recognition_tpu_torch.ops.precision import einsum_f32
+
 
 @functools.lru_cache(maxsize=16)
 def stft_basis(
@@ -61,14 +63,15 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 def _frame_matmul(x, basis, hop: int, center: bool):
     """Contract ``basis (F, n_fft)`` against the frames of ``x (..., T)``
     taken every ``hop`` samples (after reflect-padding ``n_fft // 2`` on
-    both sides when ``center``): ``(..., F, frames)``."""
+    both sides when ``center``): ``(..., F, frames)``, in full float32 on
+    both passes (the JAX package pins it at HIGHEST)."""
     n_fft = basis.shape[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if center:
         x2 = reflect_pad(x2, n_fft // 2)
     frames = x2.unfold(-1, n_fft, hop)  # (B, frames, n_fft), a view
-    out = torch.matmul(frames, basis.T).transpose(1, 2)  # (B, F, frames)
+    out = einsum_f32("bsn,fn->bfs", frames, basis)  # (B, F, frames)
     return out.reshape(lead + out.shape[1:])
 
 

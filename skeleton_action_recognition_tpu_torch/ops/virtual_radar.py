@@ -26,6 +26,7 @@ from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     RADAR_EDGES,
 )
 from skeleton_action_recognition_tpu_torch.ops import stft
+from skeleton_action_recognition_tpu_torch.ops.precision import einsum_f32
 
 
 @functools.lru_cache(maxsize=8)
@@ -129,7 +130,7 @@ def radar_return_upsampled(
     w_tiles = pad_operator.split(tile)
 
     def interp(w_tile, raw):
-        return torch.einsum("ot,nctem->ncoem", w_tile, raw)
+        return einsum_f32("ot,nctem->ncoem", w_tile, raw)
 
     bone_raw = dst_raw - src_raw
     len_sum = sum(

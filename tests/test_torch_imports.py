@@ -50,6 +50,7 @@ def test_port_imports_with_jax_blocked():
         "import skeleton_action_recognition_tpu_torch.ops.stft\n"
         "import skeleton_action_recognition_tpu_torch.ops.stft_logmag\n"
         "import skeleton_action_recognition_tpu_torch.ops.virtual_radar\n"
+        "import skeleton_action_recognition_tpu_torch.ops.precision\n"
         "import chip_smoke\n"
     )
     proc = subprocess.run(

@@ -151,3 +151,69 @@ def test_virtual_radar_refuses_tf32_matmuls(cuda):
         assert layer(x).shape == (1, 256, 38)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def outputs_and_grads(allow_tf32, fn, *inputs):
+    """``fn``'s outputs and the gradients of a seeded weighted sum of them
+    with respect to ``inputs``, with TF32 matrix products allowed or not.
+    Deterministic algorithms, so that only the switch can move a bit."""
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.are_deterministic_algorithms_enabled())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        outs = fn(*leaves)
+        gen = torch.Generator(outs[0].device).manual_seed(3)
+        loss = sum((o * torch.randn(o.shape, generator=gen,
+                                    device=o.device)).sum() for o in outs)
+        loss.backward()
+        assert torch.backends.cuda.matmul.allow_tf32 == allow_tf32
+        return [o.detach() for o in outs] + [t.grad for t in leaves]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before[0]
+        torch.use_deterministic_algorithms(before[1])
+
+
+def _assert_same_with_tf32_on(fn, *inputs):
+    off = outputs_and_grads(False, fn, *inputs)
+    on = outputs_and_grads(True, fn, *inputs)
+    for p, q in zip(on, off):
+        assert torch.isfinite(q).all()
+        assert torch.equal(p, q), _rel(p, q)
+
+
+def _clips(device, t_in=30):
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(2, 3, t_in, 25, 2)) * 0.3).astype(np.float32)
+    x[-1, ..., 1] = 0.0
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.gpu
+def test_radar_return_spline_ignores_the_tf32_switch(cuda):
+    """The spline coefficients and the bone lengths are float32 exact on
+    both passes (JAX pins them at HIGHEST), whatever the caller's switch."""
+    loc = torch.tensor([0.1, -0.2, 0.3], device=cuda)
+    lam = torch.tensor(5e-4, device=cuda)
+    _assert_same_with_tf32_on(
+        lambda x, l, w: radar.radar_return_spline(x, 20, l, w, tile=128),
+        _clips(cuda), loc, lam)
+
+
+@pytest.mark.gpu
+def test_radar_return_upsampled_ignores_the_tf32_switch(cuda):
+    """The upsampling contraction ``interp`` is float32 exact on both
+    passes (``ops/virtual_radar.py`` in JAX pins it at HIGHEST)."""
+    from skeleton_action_recognition_tpu_torch.ops import (
+        resample,
+        virtual_radar,
+    )
+
+    op = torch.from_numpy(resample.pad_frames_operator(30, 20)).to(cuda)
+    loc = torch.tensor([0.1, -0.2, 0.3], device=cuda)
+    lam = torch.tensor(5e-4, device=cuda)
+    _assert_same_with_tf32_on(
+        lambda x, l, w: virtual_radar.radar_return_upsampled(
+            x, op, l, w, tile=200),
+        _clips(cuda), loc, lam)

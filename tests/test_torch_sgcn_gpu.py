@@ -250,3 +250,50 @@ def test_stats_function_launches_its_kernels_only(cuda, monkeypatch):
     gg = g + 0.1 + 0.02 * out.detach()
     want = plain_bwd(x, w, a, gg)
     _assert_close([t.grad for t in args], want, BWD_REL_TOL[torch.float32])
+
+
+# The edges of the kernels' tiles (the bf16 kernels: 5-frame tiles of 125
+# rows padded to 128, 32 output channels, 64 or 128 input channels, rows
+# staged in 16-byte groups), as (NM, T, C_in, C_out): C_in = 3 (6-byte rows,
+# staged element by element) with NM * T not a multiple of 5; one frame;
+# C_in = 20 (unaligned) and C_out = 40 (a partial tile); C_in = 24 (aligned,
+# depth zero-padded to 32); C_in = 136 (two input-channel tiles, a partial
+# chunk) and C_out = 72; an odd C_out; the widest block at 18 frames.
+EDGE_SHAPES = [(3, 7, 3, 64), (1, 1, 16, 32), (3, 7, 20, 40), (2, 3, 24, 40),
+               (3, 4, 136, 72), (1, 5, 16, 33), (2, 9, 256, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("nm,t,c_in,c_out", EDGE_SHAPES)
+def test_kernels_at_the_edges_of_their_tiles(cuda, nm, t, c_in, c_out,
+                                             dtype):
+    """Forward (#1), stats (#2) and backward (#3) against their plain
+    versions, each launched twice with bit-identical results."""
+    x, w, b, a = _inputs(t, c_in, c_out, dtype, cuda, nm)
+    g = torch.randn(nm, t, 25, c_out, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(c_out))
+    g = g.to(dtype)
+    runs = {
+        "forward": lambda: (sgcn.fused_graph_conv(x, w, b, a),),
+        "stats": lambda: sgcn.fused_graph_conv_stats(x, w, b, a),
+        "backward": lambda: sgcn.fused_graph_conv_backward(x, w, a, g),
+    }
+    got = {}
+    for name, run in runs.items():
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        for p, q in zip(first, second):
+            assert torch.equal(p, q), name
+        got[name] = first
+    want = sgcn.graph_conv_reference(x, w, b, a)
+    out = got["forward"][0]
+    assert out.dtype == dtype and out.shape == want.shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= REL_TOL[dtype] * want.float().abs().max().item()
+    _assert_stats_close(got["stats"],
+                        sgcn.graph_conv_stats_reference(x, w, b, a), dtype)
+    _assert_close(got["backward"],
+                  sgcn.graph_conv_backward_reference(x, w, a, g),
+                  BWD_REL_TOL[dtype])

@@ -177,14 +177,47 @@ def test_backward_rejects_what_the_kernel_cannot_take(override, error):
         sgcn.fused_graph_conv_backward(**args)
 
 
-def test_backward_splits_bound_the_workspace():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_splits_bound_the_workspace(dtype):
     """At NM=256 (128 clips) the dW workspace of every block shape stays
-    under 16 MB, and each split holds at least one chunk of frames."""
+    under 16 MB, each split holds at least one chunk of frames (2 in f32,
+    5 in bf16), and the dW grid fills more than half of one wave on the
+    H100's 132 SMs (4 blocks an SM in f32, 2 in bf16) without starting a
+    second."""
+    chunk = {torch.float32: 2, torch.bfloat16: 5}[dtype]
+    tiles = {torch.float32: (32, 64), torch.bfloat16: (32, 128)}[dtype]
+    wave = {torch.float32: 4 * 132, torch.bfloat16: 2 * 132}[dtype]
     for t, c_in, c_out in [(300, 3, 64), (300, 64, 64), (300, 64, 128),
                            (150, 128, 128), (150, 128, 256),
                            (75, 256, 256)]:
         frames = 256 * t
-        splits = sgcn.backward_splits(frames, c_in, c_out)
-        assert 1 <= splits <= frames // 2
+        splits = sgcn.backward_splits(frames, c_in, c_out, dtype)
+        assert 1 <= splits <= frames // chunk
         assert splits * 3 * c_out * (c_in + 1) * 4 < 16e6
-    assert sgcn.backward_splits(3, 16, 16) == 2
+        blocks = splits * -(-c_out // tiles[0]) * -(-c_in // tiles[1])
+        assert wave // 2 < blocks <= wave
+    assert sgcn.backward_splits(3, 16, 16, dtype) == -(-3 // chunk)
+
+
+@pytest.mark.parametrize("frames,dtype,tiles", [
+    (1, torch.float32, 1), (7, torch.float32, 4), (76800, torch.float32,
+                                                   38400),
+    (1, torch.bfloat16, 1), (5, torch.bfloat16, 1), (7, torch.bfloat16, 2),
+    (76800, torch.bfloat16, 15360),
+])
+def test_forward_tiles_size_the_stats_workspace(frames, dtype, tiles):
+    """One partial row per block row of the stats kernel: 2 frames a row in
+    f32, 5 (125 rows of the tensor-core tile) in bf16."""
+    assert sgcn.forward_tiles(frames, dtype) == tiles
+
+
+def test_kernel_weight_is_cast_once_to_the_kernels_dtype():
+    """The f32 kernels read the weight as it is (no copy); the bf16 ones a
+    contiguous bf16 copy, rounded to nearest even as the plain version's
+    ``weight.to(x.dtype)`` rounds it."""
+    w = torch.randn(48, 16)
+    assert sgcn.kernel_weight(w, torch.float32) is w
+    got = sgcn.kernel_weight(w.T.contiguous().T, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.equal(got, w.to(torch.bfloat16))

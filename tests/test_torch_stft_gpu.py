@@ -110,3 +110,29 @@ def test_autograd_function_launches_both_kernels(cuda):
     assert stft_logmag.stft_logmag.launches == fwd + 1
     assert stft_logmag.stft_logmag_backward.launches == bwd + 1
     assert torch.isfinite(re.grad).all() and torch.isfinite(im.grad).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["stft_real", "stft_complex",
+                                "virtual_radar_spectrogram"])
+def test_frame_matmul_ignores_the_tf32_switch(cuda, op):
+    """The STFT's basis contraction is float32 exact on both passes (the
+    JAX package pins it at HIGHEST): the same output and input gradient
+    with TF32 allowed as without."""
+    from test_torch_radar_gpu import _assert_same_with_tf32_on, _clips
+
+    from skeleton_action_recognition_tpu_torch.ops import virtual_radar
+
+    re, im, cos, sin = _inputs(2, 600, cuda)
+    if op == "stft_real":
+        _assert_same_with_tf32_on(
+            lambda r: stft.stft_real(r, HOP, cos, sin), re)
+    elif op == "stft_complex":
+        _assert_same_with_tf32_on(
+            lambda r, i: stft.stft_complex(r, i, HOP, cos, sin), re, im)
+    else:
+        loc = torch.tensor([0.1, -0.2, 0.3], device=cuda)
+        _assert_same_with_tf32_on(
+            lambda x, l: (virtual_radar.virtual_radar_spectrogram(
+                x, l, torch.tensor(10.0, device=cuda)),),
+            _clips(cuda), loc)
