@@ -30,7 +30,8 @@ so the exit code is not 0.
    backward) against their plain versions at the three stride-1 shapes,
    NM=256, f32 and bf16, with a positive shift: the error of every
    output, two launches of each bit for bit, CUDA-event times of kernel,
-   plain version and cuDNN's conv alone.
+   plain version and cuDNN's conv alone; first (``tconv_build``) the
+   registers, spills and shared memory of the bf16 kernels.
 5. ``slice``: the full-width NTU-60 ST-GCN (T=300) from seeded random
    weights and BatchNorm statistics, behind ``Predictor(max_batch=64)``.
    Requests of 1, 7 and 64 clips: every row finite and summing to 1, ten
@@ -49,7 +50,9 @@ so the exit code is not 0.
    ``fused_tconv``, and fused on the six blocks of 128 and more filters
    (the CLI's default ``--fused-sgcn-min-channels 128``, ``bench.py``'s).
    Step time, clips/s, peak memory; the loss finite and falling; each
-   step's launches exactly ``STEP_LAUNCHES``. Then profiler traces of 3
+   step's launches exactly ``STEP_LAUNCHES``; the ``fused_tconv`` step
+   beside the ``fused`` one (``fused_tconv_vs_fused``: in bf16 it must be
+   faster and use less memory). Then profiler traces of 3
    bf16 steps, unfused, fused and fused_tconv: device time by kernel name
    and the device's idle share.
 8. ``cli``: ``cli.main_gnn.main`` on a seeded synthetic TFRecord set
@@ -103,7 +106,8 @@ three carry the bf16 kernel's numbers beside as ``bf16_ms``,
 ``bf16_plain_ms``, ``bf16_bound_ms``, ``bf16_bound_by`` and
 ``bf16_max_abs_err``;
 ``tconv_*``: f32 time of the eight stride-1 blocks' calls at NM=256, with
-cuDNN's conv alone as ``library_ms``; ``radar_*``/``stft_*``: one call at
+cuDNN's conv alone as ``library_ms``, and the bf16 numbers beside as
+``bf16_*`` (with ``bf16_library_ms``); ``radar_*``/``stft_*``: one call at
 16 clips, lambda = 5e-4, with the operator products alone as the dense
 radar kernels' ``library_ms``; ``bound_ms``: the least time of the same
 work at the card's published f32 (bf16) peak and memory rate; ``launches``: the
@@ -117,6 +121,7 @@ line.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import platform
@@ -612,6 +617,39 @@ def phase_kernel_stats(device):
     return dtype_entries(totals)
 
 
+def ptxas_entries(source, needle):
+    """``{kernel: ptxas's "Used ..." line and its spill line}`` of the
+    entry functions of ``source``'s build whose mangled name holds
+    ``needle``, from the compiler's report kept beside the library."""
+    log = build.library_path(source).with_suffix(".log").read_text()
+    entries, kernel = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            kernel = name if needle in name else None
+        elif kernel and ("spill" in line or "Used" in line):
+            entries.setdefault(kernel, []).append(line.split(":")[-1].strip()
+                                                  if "Used" in line
+                                                  else line.strip())
+    return entries
+
+
+def mma_build_report():
+    """Registers, spills and dynamic shared memory of the bf16 kernels of
+    the fused temporal chain (csrc/tconv_mma.cuh), from the build."""
+    tile, wgrad = ctypes.c_int(), ctypes.c_int()
+    fn = build.load_library("tconv_bwd.cu").tconv_mma_smem_bytes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = None
+    fn(ctypes.byref(tile), ctypes.byref(wgrad))
+    return {
+        "ptxas": {**ptxas_entries("tconv_fwd.cu", "tconv_mma"),
+                  **ptxas_entries("tconv_bwd.cu", "tconv_mma")},
+        "smem_bytes": {"mma_tile_kernel": tile.value,
+                       "mma_wgrad_kernel": wgrad.value},
+    }
+
+
 def tconv_inputs(t, c, dtype, device, g):
     """``s, scale, shift, weight, bias, gue`` of one temporal chain; the
     shift is positive, so that the padded frames' relu(shift) is far from
@@ -633,8 +671,9 @@ def phase_tconv_kernel(device):
     ``F.conv2d``; backward: ``convolution_backward`` of its input, weight
     and bias)."""
     g = torch.Generator(device=device).manual_seed(SEED + 7)
-    totals = {"tconv_fwd": Totals(library=True),
-              "tconv_bwd": Totals(library=True)}
+    totals = {k: {name: Totals(library=True) for name in DTYPES}
+              for k in ("tconv_fwd", "tconv_bwd")}
+    emit("tconv_build", **mma_build_report())
     for name, dtype in DTYPES.items():
         for (t, c), blocks in TCONV_SHAPES:
             s, scale, shift, w, b, gue = tconv_inputs(t, c, dtype, device, g)
@@ -714,12 +753,11 @@ def phase_tconv_kernel(device):
                   and all(v <= TCONV_GRAD_TOL for k, v in bwd_rel.items()
                           if k != "g_s"),
                   f"tconv_bwd disagrees at {where}: {bwd_rel}")
-            if name == "f32":
-                for k, tot in totals.items():
-                    tot.add(times[k], errs[k], *bounds[k], blocks)
+            for k, tot in totals.items():
+                tot[name].add(times[k], errs[k], *bounds[k], blocks)
             del s, gue, x, gy
             torch.cuda.empty_cache()
-    return {k: tot.entry() for k, tot in totals.items()}
+    return {k: dtype_entries(tot) for k, tot in totals.items()}
 
 
 def seeded_model(name, fused, state=None, **options):
@@ -909,8 +947,9 @@ def train_runs(device, name, batch):
 
 def time_training(device, name, batch):
     """The configurations' steps in turns, each step's launches counted
-    and checked against ``STEP_LAUNCHES``; returns the runs and the
-    launches of all timed steps."""
+    and checked against ``STEP_LAUNCHES``; returns the runs, the launches
+    of all timed steps and each configuration's median step ms and peak
+    memory MB."""
     runs = train_runs(device, name, batch)
     losses = {k: [run() for _ in range(TRAIN_WARMUP)]
               for k, run in runs.items()}
@@ -929,6 +968,7 @@ def time_training(device, name, batch):
             for n in TRAIN_KERNELS:
                 counted[k][n] += after[n] - before[n]
     launches = read_launches(TRAIN_KERNELS)
+    summary = {}
     for k, samples in times.items():
         predicted = {n: TRAIN_STEPS * STEP_LAUNCHES[k].get(n, 0)
                      for n in TRAIN_KERNELS}
@@ -939,6 +979,7 @@ def time_training(device, name, batch):
         runs[k]()
         loss = losses[k]
         med = statistics.median(samples)
+        summary[k] = (1e3 * med, torch.cuda.max_memory_allocated() / 2**20)
         emit(
             "train", dtype=name, config=k, batch=batch, t=T, remat=False,
             steps=len(samples), median_step_ms=1e3 * med,
@@ -954,7 +995,22 @@ def time_training(device, name, batch):
             np.mean(loss[-5:]) < np.mean(loss[:5]),
             f"{name} {k} training loss did not fall: {loss}",
         )
-    return runs, launches
+    return runs, launches, summary
+
+
+def compare_fused_tconv(name, summary):
+    """The ``fused_tconv`` step beside the ``fused`` one of the same run:
+    step time and peak memory. In bf16 the option must win both."""
+    (fused_ms, fused_mb), (tconv_ms, tconv_mb) = (
+        summary["fused"], summary["fused_tconv"])
+    emit("fused_tconv_vs_fused", dtype=name, fused_step_ms=fused_ms,
+         fused_tconv_step_ms=tconv_ms, step_ratio=tconv_ms / fused_ms,
+         fused_peak_mem_mb=fused_mb, fused_tconv_peak_mem_mb=tconv_mb,
+         peak_mem_ratio=tconv_mb / fused_mb)
+    if name == "bf16":
+        check(tconv_ms < fused_ms and tconv_mb < fused_mb,
+              f"the bf16 fused_tconv step ({tconv_ms} ms, {tconv_mb} MB) "
+              f"does not beat the fused one ({fused_ms} ms, {fused_mb} MB)")
 
 
 def device_profile(run, steps):
@@ -995,7 +1051,8 @@ def device_profile(run, steps):
 def phase_train(device):
     """bf16 and then f32 training; returns the launches of all timed
     steps."""
-    runs, launches = time_training(device, "bf16", TRAIN_BATCH)
+    runs, launches, summary = time_training(device, "bf16", TRAIN_BATCH)
+    compare_fused_tconv("bf16", summary)
     for config in PROFILE_CONFIGS:
         emit("profile", dtype="bf16", config=config, batch=TRAIN_BATCH,
              steps=PROFILE_STEPS,
@@ -1004,7 +1061,8 @@ def phase_train(device):
     torch.cuda.empty_cache()
     for batch in (TRAIN_BATCH, 64, 32):  # f32 at the largest that fits
         try:
-            _, f32_launches = time_training(device, "f32", batch)
+            _, f32_launches, summary = time_training(device, "f32", batch)
+            compare_fused_tconv("f32", summary)
             return {n: launches[n] + f32_launches[n] for n in launches}
         except torch.cuda.OutOfMemoryError:
             emit("train", dtype="f32", batch=batch, out_of_memory=True)

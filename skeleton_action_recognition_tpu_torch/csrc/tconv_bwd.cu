@@ -159,8 +159,10 @@ int sum_partials(cudaError_t err, void* ws_tile, int parts, void* ws_w,
 
 }  // namespace
 
-// s: (nm, t_len, 25, c) in T; gue: like s; w: (c, c, 9, 1) f32; scale,
-// shift: (c,) f32. Out: gs like s; sums (2 * c,) f32: dscale then dshift;
+// s: (nm, t_len, 25, c) in T; gue: like s; w: the f32 route's (c, c, 9, 1)
+// f32 weight, the bf16 route's (9, c, c) bf16 operand w[dt][ci][co] =
+// W[co, ci, 8 - dt] (the taps reversed and transposed); scale, shift: (c,)
+// f32. Out: gs like s; sums (2 * c,) f32: dscale then dshift;
 // dwb (9 * c * c + c,) f32: dW in (c, c, 9) order, then dbias. Workspaces:
 // ws_tile 2 * c f32 for each tile (as tconv_fwd.cu's ws), ws_w splits *
 // (9 * c * c + c) f32. All contiguous, nm * t_len >= 1; splits of the
@@ -205,12 +207,19 @@ extern "C" int tconv_bwd_bf16(const void* s, const void* gue, const void* w,
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   cudaError_t err = tconv_mma::launch_tile<tconv::MODE_DGRAD>(
-      gb, sb, static_cast<const float*>(w), sc, sh, nullptr,
+      gb, sb, static_cast<const __nv_bfloat16*>(w), sc, sh, nullptr,
       static_cast<__nv_bfloat16*>(gs), static_cast<float*>(ws_tile), nm,
       t_len, c, st);
   if (err == cudaSuccess)
     err = tconv_mma::launch_wgrad(sb, gb, sc, sh, static_cast<float*>(ws_w),
                                   nm, t_len, c, splits, st);
-  return sum_partials(err, ws_tile, tconv_mma::tile_grid(nm, t_len, c).x,
-                      ws_w, splits, c, sums, dwb, st);
+  return sum_partials(err, ws_tile, tconv_mma::tile_parts(nm, t_len), ws_w,
+                      splits, c, sums, dwb, st);
+}
+
+// The dynamic shared memory of a block of the bf16 tile and dW kernels, in
+// bytes (chip_smoke.py reports them beside the registers).
+extern "C" void tconv_mma_smem_bytes(int* tile, int* wgrad) {
+  *tile = int(sizeof(tconv_mma::TileSmem));
+  *wgrad = int(sizeof(tconv_mma::WgradSmem));
 }

@@ -33,12 +33,13 @@ int sum_partials(cudaError_t err, void* ws, int parts, int c, void* sums,
 
 }  // namespace
 
-// s: (nm, t_len, 25, c) in T; w: (c, c, 9, 1) f32 (nn.Conv2d's weight);
-// scale, shift, bias: (c,) f32. Out: u like s; sums (2 * c,) f32, the sums
-// of u then of u^2 per channel. ws: 2 * c f32 of workspace for each tile,
-// nm * ceil(t_len / 16) tiles in f32, nm * ceil(25 * t_len / 256) in bf16.
-// All contiguous, nm * t_len >= 1. Returns the first cudaError_t (0 on
-// success).
+// s: (nm, t_len, 25, c) in T; w: the f32 route's (c, c, 9, 1) f32 weight
+// (nn.Conv2d's), the bf16 route's (9, c, c) bf16 operand w[dt][co][ci] =
+// W[co, ci, dt]; scale, shift, bias: (c,) f32. Out: u like s; sums (2 * c,)
+// f32, the sums of u then of u^2 per channel. ws: 2 * c f32 of workspace for
+// each tile, nm * ceil(t_len / 16) tiles in f32, nm * ceil(25 * t_len / 512)
+// in bf16. All contiguous, nm * t_len >= 1. Returns the first cudaError_t
+// (0 on success).
 extern "C" int tconv_fwd_f32(const void* s, const void* w, const void* scale,
                              const void* shift, const void* bias, void* u,
                              void* ws, void* sums, int nm, int t_len, int c,
@@ -59,10 +60,10 @@ extern "C" int tconv_fwd_bf16(const void* s, const void* w, const void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = tconv_mma::launch_tile<tconv::MODE_FWD>(
       static_cast<const __nv_bfloat16*>(s), nullptr,
-      static_cast<const float*>(w), static_cast<const float*>(scale),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
       static_cast<const float*>(shift), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(u), static_cast<float*>(ws), nm, t_len, c,
       st);
-  return sum_partials(err, ws, tconv_mma::tile_grid(nm, t_len, c).x, c, sums,
+  return sum_partials(err, ws, tconv_mma::tile_parts(nm, t_len), c, sums,
                       st);
 }

@@ -39,14 +39,15 @@ HALO = TAPS // 2
 NUM_JOINTS = 25
 # the tiles of the forward and input-gradient kernels, one statistics
 # partial per tile and channel: csrc/tconv_tile.cuh's 16 frames (f32),
-# csrc/tconv_mma.cuh's 256 rows of a clip (bf16)
-_TILE_FRAMES, _MMA_TILE_ROWS = 16, 256
-# the dW kernels' tiling: csrc/tconv_bwd.cu's frames per chunk (f32), and
-# output and input channels per block (both)
-_DW_FRAMES, _DW_OT, _DW_IT = 8, 64, 32
-# dW blocks to aim for: four per SM of the H100's 132; the split count
-# depends on the shapes alone, which keeps the sums' order fixed
-_DW_TARGET_BLOCKS = 4 * 132
+# csrc/tconv_mma.cuh's 512 rows of a clip (bf16)
+_TILE_FRAMES, _MMA_TILE_ROWS = 16, 512
+# the dW kernels' tiling and the blocks to aim for: csrc/tconv_bwd.cu's
+# frames per chunk, output and input channels per block and four blocks per
+# SM of the H100's 132 (f32); csrc/tconv_mma.cuh's output and input
+# channels per block and one block per SM (bf16). The split count depends
+# on the shapes alone, which keeps the sums' order fixed.
+_DW_FRAMES, _DW_OT, _DW_IT, _DW_TARGET_BLOCKS = 8, 64, 32, 4 * 132
+_MMA_DW_OT, _MMA_DW_IT, _MMA_DW_TARGET_BLOCKS = 64, 64, 132
 
 
 def _acc_dtype(dtype):
@@ -111,6 +112,21 @@ def affine_relu_tconv_backward_reference(s, scale, shift, weight, gue):
          for dt in range(TAPS)], dim=-1,
     )[..., None]
     return g_s, dscale, dshift, dweight, g.sum((0, 1, 2))
+
+
+def weight_operands(weight, dtype):
+    """The conv weight as the bf16 kernels read it: ``(w_fwd, w_dgrad)``,
+    each ``(9, C, C)`` contiguous in ``dtype`` (bf16), with ``w_fwd[dt, co,
+    ci] = weight[co, ci, dt]`` (the forward's B as [n][k]) and ``w_dgrad[dt,
+    ci, co] = weight[co, ci, 8 - dt]`` (the input gradient's: the taps
+    reversed and transposed). The JAX wrapper casts its ``wall`` and ``wt``
+    once a call in the same way (``ops/pallas/tconv.py:322-325, 388-391``).
+    ``None`` for f32, whose kernels read the f32 weight as it is."""
+    if dtype != torch.bfloat16:
+        return None
+    w = weight[..., 0].to(dtype)  # (co, ci, dt)
+    return (w.permute(2, 0, 1).contiguous(),
+            w.flip(2).permute(2, 1, 0).contiguous())
 
 
 def _check(s, scale, shift, weight, bias=None):
@@ -179,9 +195,11 @@ def _forward(s, scale, shift, weight, bias):
         return u, sums[:c], sums[c:]
     ws = torch.empty(_tile_partials(nm, t, c, s.dtype), dtype=torch.float32,
                      device=s.device)
+    operands = weight_operands(weight, s.dtype)
+    w = weight if operands is None else operands[0]
     launch(
         _kernel("tconv_fwd.cu", 8, 3, s.dtype), "tconv_fwd", s.device,
-        s.data_ptr(), weight.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        s.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         bias.data_ptr(), u.data_ptr(), ws.data_ptr(), sums.data_ptr(),
         nm, t, c,
     )
@@ -192,10 +210,14 @@ def _forward(s, scale, shift, weight, bias):
 def backward_splits(nm: int, t: int, c: int, dtype) -> int:
     """How many splits the dW kernels sum ``dW``/``dbias`` over: enough
     blocks to fill the card, at least one chunk of frames (f32) or one
-    clip (bf16) each. The workspace holds one ``9 * C * C + C`` f32
-    partial per split, ~40 MB at the model's shapes."""
+    clip (bf16) each; in bf16 no more than one wave of one block per SM.
+    The workspace holds one ``9 * C * C + C`` f32 partial per split, at most
+    ~40 MB at the model's shapes."""
+    if dtype == torch.bfloat16:
+        tiles = -(-c // _MMA_DW_OT) * -(-c // _MMA_DW_IT)
+        return max(1, min(_MMA_DW_TARGET_BLOCKS // tiles, nm))
     tiles = -(-c // _DW_OT) * -(-c // _DW_IT)
-    most = nm if dtype == torch.bfloat16 else -(-(nm * t) // _DW_FRAMES)
+    most = -(-(nm * t) // _DW_FRAMES)
     return max(1, min(-(-_DW_TARGET_BLOCKS // tiles), most))
 
 
@@ -238,9 +260,11 @@ def _backward(s, scale, shift, weight, gue):
                               dtype=torch.float32, device=s.device)
         ws_w = torch.empty(splits * (TAPS * c * c + c),
                            dtype=torch.float32, device=s.device)
+        operands = weight_operands(weight, s.dtype)
+        w = weight if operands is None else operands[1]
         launch(
             _kernel("tconv_bwd.cu", 10, 4, s.dtype), "tconv_bwd", s.device,
-            s.data_ptr(), gue.data_ptr(), weight.data_ptr(),
+            s.data_ptr(), gue.data_ptr(), w.data_ptr(),
             scale.data_ptr(), shift.data_ptr(), g_s.data_ptr(),
             ws_tile.data_ptr(), ws_w.data_ptr(), sums.data_ptr(),
             dwb.data_ptr(), nm, t, c, splits,

@@ -81,6 +81,40 @@ def test_padding_is_zero_after_the_affine():
     np.testing.assert_allclose(u[:, 0].numpy(), first.numpy(), atol=1e-5)
 
 
+def _jax_weight_operands(kernel):
+    """The JAX wrapper's weight operands in bf16: ``wall`` (the forward's,
+    ``ops/pallas/tconv.py:323-325``) and ``wt`` (the backward's,
+    ``:389-391``), both ``(C, 9 * C)``."""
+    k = jnp.asarray(kernel)
+    c = k.shape[-1]
+    wall = jnp.transpose(k[:, 0], (1, 0, 2)).reshape(c, 9 * c)
+    wt = jnp.transpose(k[::-1, 0], (2, 0, 1)).reshape(c, 9 * c)
+    return wall.astype(jnp.bfloat16), wt.astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("c,dtype", [(8, torch.bfloat16),
+                                     (6, torch.bfloat16),
+                                     (8, torch.float32)])
+def test_weight_operands_match_the_jax_wrapper(c, dtype):
+    """The bf16 kernels' weight operands are the JAX wrapper's ``wall``
+    and ``wt`` permuted to ``[dt][n][k]``, exactly; f32 makes none."""
+    kernel = _op_inputs(8, seed=11, c=c)[3]
+    weight = torch.tensor(kernel.transpose(3, 2, 0, 1).copy())
+    operands = tconv.weight_operands(weight, dtype)
+    if dtype == torch.float32:
+        assert operands is None
+        return
+    wall, wt = _jax_weight_operands(kernel)
+    # wall (C_in, 9, C_out) -> (9, C_out, C_in); wt (C_out, 9, C_in) ->
+    # (9, C_in, C_out)
+    for got, want in zip(operands, (wall, wt)):
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        assert got.shape == (9, c, c)
+        want = np.asarray(want.astype(jnp.float32)).reshape(c, 9, c)
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      want.transpose(1, 2, 0))
+
+
 def _sin_loss(u, s2, ss2):
     """``tests/test_pallas_tconv.py``'s loss: every cotangent is nonzero."""
     return (torch.sin(u).sum() + (s2 * 0.1).sum() + (ss2 * 0.01).sum())

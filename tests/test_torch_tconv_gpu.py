@@ -43,12 +43,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(t, c, dtype, device, nm=4):
+def _inputs(t, c, dtype, device, nm=4, shift_floor=0.5):
     """A positive shift: the padded frames' relu(shift) is far from 0."""
     g = torch.Generator(device=device).manual_seed(t + c)
     s = torch.randn(nm, t, 25, c, generator=g, device=device).to(dtype)
     scale = torch.randn(c, generator=g, device=device)
-    shift = 0.5 + torch.rand(c, generator=g, device=device)
+    shift = shift_floor + torch.rand(c, generator=g, device=device)
     w = torch.randn(c, c, 9, 1, generator=g, device=device) / (3 * c**0.5)
     b = 0.1 * torch.randn(c, generator=g, device=device)
     gue = torch.randn(nm, t, 25, c, generator=g, device=device).to(dtype)
@@ -102,6 +102,51 @@ def test_kernels_match_plain_versions(cuda, t, c, dtype):
         s, scale, shift, w, b), dtype)
     _check_backward(got_bwd, tconv.affine_relu_tconv_backward_reference(
         s, scale, shift, w, gue), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,c,nm", [
+    (3, 64, 4),     # a clip of 75 rows, less than one 512-row tile
+    (77, 64, 4),    # 1925 rows: no multiple of the tile
+    (20, 96, 4),    # C no multiple of the 64-channel tile
+    (20, 136, 4),   # nor of the 32-channel chunk
+    (75, 256, 1),   # one clip: fewer tiles and dW splits than SMs
+])
+def test_bf16_kernels_at_the_tile_edges(cuda, t, c, nm):
+    """The bf16 tile and dW kernels where their tiles, chunks and splits
+    are ragged: against the plain versions, one launch each, and a repeat
+    bit for bit."""
+    dtype = torch.bfloat16
+    s, scale, shift, w, b, gue = _inputs(t, c, dtype, cuda, nm=nm)
+    fwd_args, bwd_args = (s, scale, shift, w, b), (s, scale, shift, w, gue)
+    fwd = tconv.affine_relu_tconv.launches
+    bwd = tconv.affine_relu_tconv_backward.launches
+    got = tconv.affine_relu_tconv(*fwd_args)
+    got_bwd = tconv.affine_relu_tconv_backward(*bwd_args)
+    torch.cuda.synchronize()
+    assert tconv.affine_relu_tconv.launches == fwd + 1
+    assert tconv.affine_relu_tconv_backward.launches == bwd + 1
+    _check_forward(got, tconv.affine_relu_tconv_reference(*fwd_args), dtype)
+    _check_backward(got_bwd,
+                    tconv.affine_relu_tconv_backward_reference(*bwd_args),
+                    dtype)
+    again = tconv.affine_relu_tconv(*fwd_args)
+    again_bwd = tconv.affine_relu_tconv_backward(*bwd_args)
+    for p, q in zip(got + got_bwd, again + again_bwd):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_padding_is_zero_after_the_affine(cuda, dtype):
+    """At a large positive shift, relu(shift) leaking into the halo rows
+    would move the first and last frames' u far from the plain version's
+    (which pads h): both agree there as everywhere."""
+    s, scale, shift, w, b, _ = _inputs(9, 64, dtype, cuda, shift_floor=4.0)
+    got = tconv.affine_relu_tconv(s, scale, shift, w, b)[0]
+    want = tconv.affine_relu_tconv_reference(s, scale, shift, w, b)[0]
+    for frame in (0, -1):
+        assert _rel(got[:, frame], want[:, frame]) <= OUT_TOL[dtype]
 
 
 @pytest.mark.gpu
