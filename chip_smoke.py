@@ -31,7 +31,8 @@ so the exit code is not 0.
    NM=256, f32 and bf16, with a positive shift: the error of every
    output, two launches of each bit for bit, CUDA-event times of kernel,
    plain version and cuDNN's conv alone; first (``tconv_build``) the
-   registers, spills and shared memory of the bf16 kernels.
+   registers, spills and shared memory of the f32 and bf16 kernels (the
+   f32 ones must not spill).
 5. ``slice``: the full-width NTU-60 ST-GCN (T=300) from seeded random
    weights and BatchNorm statistics, behind ``Predictor(max_batch=64)``.
    Requests of 1, 7 and 64 clips: every row finite and summing to 1, ten
@@ -51,8 +52,8 @@ so the exit code is not 0.
    (the CLI's default ``--fused-sgcn-min-channels 128``, ``bench.py``'s).
    Step time, clips/s, peak memory; the loss finite and falling; each
    step's launches exactly ``STEP_LAUNCHES``; the ``fused_tconv`` step
-   beside the ``fused`` one (``fused_tconv_vs_fused``: in bf16 it must be
-   faster and use less memory). Then profiler traces of 3
+   beside the ``fused`` one (``fused_tconv_vs_fused``: in bf16 and in f32
+   it must be faster and use less memory). Then profiler traces of 3
    bf16 steps, unfused, fused and fused_tconv: device time by kernel name
    and the device's idle share.
 8. ``cli``: ``cli.main_gnn.main`` on a seeded synthetic TFRecord set
@@ -125,6 +126,7 @@ import ctypes
 import json
 import os
 import platform
+import re
 import statistics
 import subprocess
 import tempfile
@@ -634,20 +636,28 @@ def ptxas_entries(source, needle):
     return entries
 
 
-def mma_build_report():
-    """Registers, spills and dynamic shared memory of the bf16 kernels of
-    the fused temporal chain (csrc/tconv_mma.cuh), from the build."""
-    tile, wgrad = ctypes.c_int(), ctypes.c_int()
-    fn = build.load_library("tconv_bwd.cu").tconv_mma_smem_bytes
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = None
-    fn(ctypes.byref(tile), ctypes.byref(wgrad))
-    return {
-        "ptxas": {**ptxas_entries("tconv_fwd.cu", "tconv_mma"),
-                  **ptxas_entries("tconv_bwd.cu", "tconv_mma")},
-        "smem_bytes": {"mma_tile_kernel": tile.value,
-                       "mma_wgrad_kernel": wgrad.value},
-    }
+def tconv_build_report():
+    """Registers, spills and dynamic shared memory of the kernels of the
+    fused temporal chain, from the build: f32 (csrc/tconv_tile.cuh and
+    tconv_bwd.cu, namespace ``tconv``) and bf16 (csrc/tconv_mma.cuh)."""
+    lib = build.load_library("tconv_bwd.cu")
+    report = {}
+    for dtype, prefix, fn_name, names in (
+            ("f32", "_ZN5tconv", "tconv_f32_smem_bytes",
+             ("tile_kernel", "wgrad_kernel")),
+            ("bf16", "tconv_mma", "tconv_mma_smem_bytes",
+             ("mma_tile_kernel", "mma_wgrad_kernel"))):
+        tile, wgrad = ctypes.c_int(), ctypes.c_int()
+        fn = getattr(lib, fn_name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = None
+        fn(ctypes.byref(tile), ctypes.byref(wgrad))
+        report[dtype] = {
+            "ptxas": {**ptxas_entries("tconv_fwd.cu", prefix),
+                      **ptxas_entries("tconv_bwd.cu", prefix)},
+            "smem_bytes": {names[0]: tile.value, names[1]: wgrad.value},
+        }
+    return report
 
 
 def tconv_inputs(t, c, dtype, device, g):
@@ -673,7 +683,13 @@ def phase_tconv_kernel(device):
     g = torch.Generator(device=device).manual_seed(SEED + 7)
     totals = {k: {name: Totals(library=True) for name in DTYPES}
               for k in ("tconv_fwd", "tconv_bwd")}
-    emit("tconv_build", **mma_build_report())
+    report = tconv_build_report()
+    emit("tconv_build", **report)
+    spills = [line for lines in report["f32"]["ptxas"].values()
+              for line in lines if "spill" in line and not re.search(
+                  r"\b0 bytes spill stores, 0 bytes spill loads", line)]
+    check(len(report["f32"]["ptxas"]) == 3 and not spills,
+          f"the f32 temporal kernels spill: {report['f32']['ptxas']}")
     for name, dtype in DTYPES.items():
         for (t, c), blocks in TCONV_SHAPES:
             s, scale, shift, w, b, gue = tconv_inputs(t, c, dtype, device, g)
@@ -1000,17 +1016,16 @@ def time_training(device, name, batch):
 
 def compare_fused_tconv(name, summary):
     """The ``fused_tconv`` step beside the ``fused`` one of the same run:
-    step time and peak memory. In bf16 the option must win both."""
+    step time and peak memory. The option must win both."""
     (fused_ms, fused_mb), (tconv_ms, tconv_mb) = (
         summary["fused"], summary["fused_tconv"])
     emit("fused_tconv_vs_fused", dtype=name, fused_step_ms=fused_ms,
          fused_tconv_step_ms=tconv_ms, step_ratio=tconv_ms / fused_ms,
          fused_peak_mem_mb=fused_mb, fused_tconv_peak_mem_mb=tconv_mb,
          peak_mem_ratio=tconv_mb / fused_mb)
-    if name == "bf16":
-        check(tconv_ms < fused_ms and tconv_mb < fused_mb,
-              f"the bf16 fused_tconv step ({tconv_ms} ms, {tconv_mb} MB) "
-              f"does not beat the fused one ({fused_ms} ms, {fused_mb} MB)")
+    check(tconv_ms < fused_ms and tconv_mb < fused_mb,
+          f"the {name} fused_tconv step ({tconv_ms} ms, {tconv_mb} MB) "
+          f"does not beat the fused one ({fused_ms} ms, {fused_mb} MB)")
 
 
 def device_profile(run, steps):

@@ -5,22 +5,25 @@ card, beside cuDNN's conv and the plain versions.
 Run from the repository root on a machine with a CUDA card:
 
     PYTHONPATH=. python scripts/torch_tconv_bench.py [f32|bf16 ...]
-    PYTHONPATH=. python scripts/torch_tconv_bench.py variants
+    PYTHONPATH=. python scripts/torch_tconv_bench.py variants [f32|bf16]
 
 For each of ``chip_smoke.py``'s three stride-1 shapes (T, C) at NM=256 it
 prints one JSON line: CUDA-event times (mean of 20 calls after 3) of the
 kernels, of cuDNN's 9x1 ``F.conv2d`` and ``convolution_backward``, the
 bound, and the device time of each CUDA kernel of one backward call by
-name (``torch.profiler``); then the times summed over the eight blocks
+name (``torch.profiler``: #5's input-gradient tile kernel and its dW
+kernel apart, in either dtype); then the times summed over the eight blocks
 (four of (300, 64), two each of (150, 128) and (75, 256)) and the card's
 name and power limit. The inputs are ``chip_smoke.tconv_inputs``'s.
 
 ``variants`` builds copies of ``csrc/`` with the source substitutions of
 ``VARIANTS`` (one ``nvcc`` each, all at once, with ``ops/build.py``'s
-flags) and times each build's bf16 kernels the same way, through the
-wrapper, with its registers and spills and its largest error against the
-plain versions. A tool for redesigning the kernels: the port never loads
-these builds.
+flags) and times each build's kernels of one dtype (bf16 unless named)
+the same way, through the wrapper, with its registers and spills and its
+largest error against the plain versions. A tool for redesigning the
+kernels: the port never loads these builds (a variant that changes a
+tiling the wrapper sizes its workspaces by needs that constant of
+``ops/tconv.py`` set to match while it is timed).
 """
 
 from __future__ import annotations
@@ -42,14 +45,15 @@ from skeleton_action_recognition_tpu_torch.ops import build, tconv
 SOURCES = ("tconv_fwd.cu", "tconv_bwd.cu")
 # name -> [(file under csrc/, text, replacement)], each against the sources
 # of the checkout
-M = "tconv_mma.cuh"
+TILE, BWD = "tconv_tile.cuh", "tconv_bwd.cu"
 VARIANTS = {
     "as built": [],
-    "probe, tile: no affine pass (wrong u)": [
-        (M, "if (FWD) {  // h = relu", "if (false) {  // h = relu")],
-    "probe, dW: no affine pass (wrong results)": [
-        (M, "    if (i0 + kl < c) {\n      float2 ss[8];",
-         "    if (false) {\n      float2 ss[8];")],
+    "probe, f32 tile: no staging after the first chunk (wrong results)": [
+        (TILE, "const bool more = i + 1 < chunks;",
+         "const bool more = false;")],
+    "probe, f32 dW: no staging after the first chunk (wrong results)": [
+        (BWD, "const bool more = x + 1 < chunks;",
+         "const bool more = false;")],
 }
 
 
@@ -123,7 +127,7 @@ def time_shapes(names, device, g, errors=False):
               flush=True)
 
 
-def variants(device):
+def variants(device, dtype_name):
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
         for i, (name, subs) in enumerate(VARIANTS.items()):
@@ -163,11 +167,14 @@ def variants(device):
 
                 tconv._kernel = variant_kernel
                 print(json.dumps({"variant": name, "ptxas": [
-                    line.strip() for line in log.splitlines()
-                    if "Used" in line or "spill" in line]}), flush=True)
+                    line.split("'")[1] if "entry function" in line
+                    else line.split(":")[-1].strip()
+                    for line in log.splitlines()
+                    if "entry function" in line or "Used" in line
+                    or "spill" in line]}), flush=True)
                 g = torch.Generator(device=device).manual_seed(
                     chip_smoke.SEED + 7)
-                time_shapes(["bf16"], device, g, errors=True)
+                time_shapes([dtype_name], device, g, errors=True)
         finally:
             tconv._kernel = kernel
 
@@ -175,8 +182,8 @@ def variants(device):
 def main(args):
     chip_smoke.phase_env()  # raises without a card
     device = torch.device("cuda", 0)
-    if args == ["variants"]:
-        variants(device)
+    if args[:1] == ["variants"]:
+        variants(device, args[1] if len(args) > 1 else "bf16")
     else:
         g = torch.Generator(device=device).manual_seed(chip_smoke.SEED + 7)
         time_shapes(args or ["bf16"], device, g)

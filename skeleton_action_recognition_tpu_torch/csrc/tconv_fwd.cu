@@ -33,13 +33,14 @@ int sum_partials(cudaError_t err, void* ws, int parts, int c, void* sums,
 
 }  // namespace
 
-// s: (nm, t_len, 25, c) in T; w: the f32 route's (c, c, 9, 1) f32 weight
-// (nn.Conv2d's), the bf16 route's (9, c, c) bf16 operand w[dt][co][ci] =
-// W[co, ci, dt]; scale, shift, bias: (c,) f32. Out: u like s; sums (2 * c,)
-// f32, the sums of u then of u^2 per channel. ws: 2 * c f32 of workspace for
-// each tile, nm * ceil(t_len / 16) tiles in f32, nm * ceil(25 * t_len / 512)
-// in bf16. All contiguous, nm * t_len >= 1. Returns the first cudaError_t
-// (0 on success).
+// s: (nm, t_len, 25, c) in T; w: the forward's weight operand, the f32
+// route's (c, 9, c) f32 w[ci][dt][co] = W[co, ci, dt], the bf16 route's
+// (9, c, c) bf16 w[dt][co][ci] = W[co, ci, dt]; scale, shift, bias: (c,)
+// f32. Out: u like s; sums (2 * c,) f32, the sums of u then of u^2 per
+// channel. ws: 2 * c f32 of workspace for each tile, ceil(25 nm / 24) *
+// ceil(t_len / 16) tiles in f32 (tconv_tile.cuh's tile_grid), nm *
+// ceil(25 * t_len / 512) in bf16. All contiguous, nm * t_len >= 1.
+// Returns the first cudaError_t (0 on success).
 extern "C" int tconv_fwd_f32(const void* s, const void* w, const void* scale,
                              const void* shift, const void* bias, void* u,
                              void* ws, void* sums, int nm, int t_len, int c,

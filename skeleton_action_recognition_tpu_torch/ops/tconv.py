@@ -38,15 +38,17 @@ TAPS = 9
 HALO = TAPS // 2
 NUM_JOINTS = 25
 # the tiles of the forward and input-gradient kernels, one statistics
-# partial per tile and channel: csrc/tconv_tile.cuh's 16 frames (f32),
-# csrc/tconv_mma.cuh's 512 rows of a clip (bf16)
-_TILE_FRAMES, _MMA_TILE_ROWS = 16, 512
+# partial per tile and channel: csrc/tconv_tile.cuh's 16 frames of 24
+# (clip, joint) sequences (f32), csrc/tconv_mma.cuh's 512 rows of a clip
+# (bf16)
+_TILE_FRAMES, _TILE_SLOTS, _MMA_TILE_ROWS = 16, 24, 512
 # the dW kernels' tiling and the blocks to aim for: csrc/tconv_bwd.cu's
-# frames per chunk, output and input channels per block and four blocks per
-# SM of the H100's 132 (f32); csrc/tconv_mma.cuh's output and input
-# channels per block and one block per SM (bf16). The split count depends
-# on the shapes alone, which keeps the sums' order fixed.
-_DW_FRAMES, _DW_OT, _DW_IT, _DW_TARGET_BLOCKS = 8, 64, 32, 4 * 132
+# output and input channels per block and two waves of three blocks per SM
+# of the H100's 132 (f32; two waves ran ~1% faster than one);
+# csrc/tconv_mma.cuh's output and input channels per block and one wave of
+# one block per SM (bf16). The split count depends on the shapes alone,
+# which keeps the sums' order fixed.
+_DW_OT, _DW_IT, _DW_TARGET_BLOCKS = 32, 32, 2 * 3 * 132
 _MMA_DW_OT, _MMA_DW_IT, _MMA_DW_TARGET_BLOCKS = 64, 64, 132
 
 
@@ -115,18 +117,22 @@ def affine_relu_tconv_backward_reference(s, scale, shift, weight, gue):
 
 
 def weight_operands(weight, dtype):
-    """The conv weight as the bf16 kernels read it: ``(w_fwd, w_dgrad)``,
-    each ``(9, C, C)`` contiguous in ``dtype`` (bf16), with ``w_fwd[dt, co,
-    ci] = weight[co, ci, dt]`` (the forward's B as [n][k]) and ``w_dgrad[dt,
-    ci, co] = weight[co, ci, 8 - dt]`` (the input gradient's: the taps
-    reversed and transposed). The JAX wrapper casts its ``wall`` and ``wt``
-    once a call in the same way (``ops/pallas/tconv.py:322-325, 388-391``).
-    ``None`` for f32, whose kernels read the f32 weight as it is."""
-    if dtype != torch.bfloat16:
-        return None
+    """The conv weight as the kernels read it, ``(w_fwd, w_dgrad)``,
+    permuted once a call as the JAX wrapper does its ``wall`` and ``wt``
+    (``ops/pallas/tconv.py:322-325, 388-391``).
+
+    f32: each ``(C, 9, C)`` f32, ``w_fwd[ci, dt, co] = weight[co, ci, dt]``
+    (``wall``) and ``w_dgrad[co, dt, ci] = weight[co, ci, 8 - dt]`` (``wt``:
+    the taps reversed and transposed), permuted only. bf16: each ``(9, C,
+    C)`` cast to bf16, ``w_fwd[dt, co, ci] = weight[co, ci, dt]`` (the
+    forward's B as [n][k]) and ``w_dgrad[dt, ci, co] = weight[co, ci, 8 -
+    dt]``."""
     w = weight[..., 0].to(dtype)  # (co, ci, dt)
-    return (w.permute(2, 0, 1).contiguous(),
-            w.flip(2).permute(2, 1, 0).contiguous())
+    if dtype == torch.bfloat16:
+        return (w.permute(2, 0, 1).contiguous(),
+                w.flip(2).permute(2, 1, 0).contiguous())
+    return (w.permute(1, 2, 0).contiguous(),
+            w.flip(2).permute(0, 2, 1).contiguous())
 
 
 def _check(s, scale, shift, weight, bias=None):
@@ -177,7 +183,8 @@ def _tile_partials(nm, t, c, dtype):
     channel)."""
     if dtype == torch.bfloat16:
         return nm * -(-(t * NUM_JOINTS) // _MMA_TILE_ROWS) * 2 * c
-    return nm * -(-t // _TILE_FRAMES) * 2 * c
+    return (-(-(nm * NUM_JOINTS) // _TILE_SLOTS) * -(-t // _TILE_FRAMES)
+            * 2 * c)
 
 
 def _forward(s, scale, shift, weight, bias):
@@ -195,8 +202,7 @@ def _forward(s, scale, shift, weight, bias):
         return u, sums[:c], sums[c:]
     ws = torch.empty(_tile_partials(nm, t, c, s.dtype), dtype=torch.float32,
                      device=s.device)
-    operands = weight_operands(weight, s.dtype)
-    w = weight if operands is None else operands[0]
+    w = weight_operands(weight, s.dtype)[0]
     launch(
         _kernel("tconv_fwd.cu", 8, 3, s.dtype), "tconv_fwd", s.device,
         s.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
@@ -208,17 +214,17 @@ def _forward(s, scale, shift, weight, bias):
 
 
 def backward_splits(nm: int, t: int, c: int, dtype) -> int:
-    """How many splits the dW kernels sum ``dW``/``dbias`` over: enough
-    blocks to fill the card, at least one chunk of frames (f32) or one
-    clip (bf16) each; in bf16 no more than one wave of one block per SM.
-    The workspace holds one ``9 * C * C + C`` f32 partial per split, at most
-    ~40 MB at the model's shapes."""
+    """How many splits the dW kernels sum ``dW``/``dbias`` over: as many as
+    two waves of their blocks hold in f32 (three blocks per SM), one wave
+    in bf16 (one), at least one (clip, joint) sequence (f32) or one clip
+    (bf16) each. The workspace holds one ``9 * C * C + C`` f32 partial per
+    split: at most ~30 MB at the model's shapes."""
+    del t  # the splits cut whole sequences, of any length
     if dtype == torch.bfloat16:
         tiles = -(-c // _MMA_DW_OT) * -(-c // _MMA_DW_IT)
         return max(1, min(_MMA_DW_TARGET_BLOCKS // tiles, nm))
     tiles = -(-c // _DW_OT) * -(-c // _DW_IT)
-    most = -(-(nm * t) // _DW_FRAMES)
-    return max(1, min(-(-_DW_TARGET_BLOCKS // tiles), most))
+    return max(1, min(_DW_TARGET_BLOCKS // tiles, nm * NUM_JOINTS))
 
 
 def affine_relu_tconv_backward(s, scale, shift, weight, gue):
@@ -260,8 +266,7 @@ def _backward(s, scale, shift, weight, gue):
                               dtype=torch.float32, device=s.device)
         ws_w = torch.empty(splits * (TAPS * c * c + c),
                            dtype=torch.float32, device=s.device)
-        operands = weight_operands(weight, s.dtype)
-        w = weight if operands is None else operands[1]
+        w = weight_operands(weight, s.dtype)[1]
         launch(
             _kernel("tconv_bwd.cu", 10, 4, s.dtype), "tconv_bwd", s.device,
             s.data_ptr(), gue.data_ptr(), w.data_ptr(),

@@ -81,38 +81,84 @@ def test_padding_is_zero_after_the_affine():
     np.testing.assert_allclose(u[:, 0].numpy(), first.numpy(), atol=1e-5)
 
 
-def _jax_weight_operands(kernel):
-    """The JAX wrapper's weight operands in bf16: ``wall`` (the forward's,
-    ``ops/pallas/tconv.py:323-325``) and ``wt`` (the backward's,
-    ``:389-391``), both ``(C, 9 * C)``."""
+def _jax_weight_operands(kernel, dtype):
+    """The JAX wrapper's weight operands in ``dtype``: ``wall`` (the
+    forward's, ``ops/pallas/tconv.py:323-325``) and ``wt`` (the
+    backward's, ``:389-391``), both ``(C, 9 * C)``."""
     k = jnp.asarray(kernel)
     c = k.shape[-1]
     wall = jnp.transpose(k[:, 0], (1, 0, 2)).reshape(c, 9 * c)
     wt = jnp.transpose(k[::-1, 0], (2, 0, 1)).reshape(c, 9 * c)
-    return wall.astype(jnp.bfloat16), wt.astype(jnp.bfloat16)
+    return wall.astype(dtype), wt.astype(dtype)
 
 
 @pytest.mark.parametrize("c,dtype", [(8, torch.bfloat16),
                                      (6, torch.bfloat16),
-                                     (8, torch.float32)])
+                                     (8, torch.float32),
+                                     (6, torch.float32)])
 def test_weight_operands_match_the_jax_wrapper(c, dtype):
-    """The bf16 kernels' weight operands are the JAX wrapper's ``wall``
-    and ``wt`` permuted to ``[dt][n][k]``, exactly; f32 makes none."""
+    """The kernels' weight operands are the JAX wrapper's ``wall`` and
+    ``wt``, exactly: in f32 as they are, ``(C, 9, C)``; in bf16 permuted
+    to ``[dt][n][k]``."""
     kernel = _op_inputs(8, seed=11, c=c)[3]
     weight = torch.tensor(kernel.transpose(3, 2, 0, 1).copy())
     operands = tconv.weight_operands(weight, dtype)
-    if dtype == torch.float32:
-        assert operands is None
-        return
-    wall, wt = _jax_weight_operands(kernel)
-    # wall (C_in, 9, C_out) -> (9, C_out, C_in); wt (C_out, 9, C_in) ->
-    # (9, C_in, C_out)
-    for got, want in zip(operands, (wall, wt)):
-        assert got.dtype == torch.bfloat16 and got.is_contiguous()
-        assert got.shape == (9, c, c)
+    jax_dtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    for got, want in zip(operands, _jax_weight_operands(kernel, jax_dtype)):
+        assert got.dtype == dtype and got.is_contiguous()
         want = np.asarray(want.astype(jnp.float32)).reshape(c, 9, c)
-        np.testing.assert_array_equal(got.float().numpy(),
-                                      want.transpose(1, 2, 0))
+        if dtype == torch.float32:
+            # wall (C_in, 9, C_out), wt (C_out, 9, C_in): the f32 kernels'
+            # [k][dt][n]
+            assert got.shape == (c, 9, c)
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            # wall -> (9, C_out, C_in); wt -> (9, C_in, C_out)
+            assert got.shape == (9, c, c)
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          want.transpose(1, 2, 0))
+
+
+# the model's stride-1 temporal chains at the training batch: (T, C) at
+# NM = 256 (128 clips of 2 bodies)
+MODEL_SHAPES = [(300, 64), (150, 128), (75, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_splits_bound_the_workspace(dtype):
+    """At the model's shapes the dW kernels' splits fill most of two waves
+    of three blocks per SM of the H100's 132 in f32, of one wave of one
+    block per SM in bf16, without starting another, each split holds at
+    least one (clip, joint) sequence (f32) or one clip (bf16), and the
+    workspace of one ``9 C^2 + C`` f32 partial a split stays within ~40
+    MB."""
+    blocks_most = {torch.float32: 2 * 3 * 132, torch.bfloat16: 132}[dtype]
+    tiles = {torch.float32: (32, 32), torch.bfloat16: (64, 64)}[dtype]
+    unit = {torch.float32: 25, torch.bfloat16: 1}[dtype]
+    for t, c in MODEL_SHAPES:
+        splits = tconv.backward_splits(256, t, c, dtype)
+        assert 1 <= splits <= 256 * unit
+        assert splits * (9 * c * c + c) * 4 <= 40e6
+        blocks = splits * -(-c // tiles[0]) * -(-c // tiles[1])
+        assert blocks_most * 0.9 < blocks <= blocks_most
+    # fewer sequences or clips than the wave holds: one each
+    assert tconv.backward_splits(1, 3, 16, dtype) == unit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("nm,t,c", [(256, 300, 64), (256, 150, 128),
+                                    (256, 75, 256), (1, 3, 20),
+                                    (4, 77, 136)])
+def test_tile_partials_match_the_tile_grid(nm, t, c, dtype):
+    """One partial of the two channel sums per (tile, channel): tiles of 16
+    frames of 24 of the nm * 25 (clip, joint) sequences in f32 (the tile
+    kernel's grid.x, csrc/tconv_tile.cuh::tile_grid), of 512 rows of a
+    clip in bf16."""
+    tiles = {torch.float32: -(-(nm * 25) // 24) * -(-t // 16),
+             torch.bfloat16: nm * -(-(t * 25) // 512)}[dtype]
+    assert tconv._tile_partials(nm, t, c, dtype) == tiles * 2 * c
 
 
 def _sin_loss(u, s2, ss2):

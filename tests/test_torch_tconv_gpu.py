@@ -137,6 +137,56 @@ def test_bf16_kernels_at_the_tile_edges(cuda, t, c, nm):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t,c,nm", [
+    (3, 64, 4),     # a clip shorter than one 16-frame tile
+    (77, 64, 4),    # no multiple of the tile
+    (20, 20, 4),    # C below one 64-channel tile, ragged 8-channel chunk
+    (20, 96, 4),    # C no multiple of the 64-channel tile
+    (20, 136, 4),   # nor of the dW kernel's 32 input channels
+    (75, 256, 1),   # one clip: 25 (clip, joint) sequences, fewer splits
+    (9, 30, 2),     # C no multiple of 4: rows not 16-byte aligned
+])
+def test_f32_kernels_at_the_tile_edges(cuda, t, c, nm):
+    """The f32 tile and dW kernels where their tiles, chunks and splits
+    are ragged: against the plain versions at the f32 tolerances, one
+    launch each, and a repeat bit for bit."""
+    dtype = torch.float32
+    s, scale, shift, w, b, gue = _inputs(t, c, dtype, cuda, nm=nm)
+    fwd_args, bwd_args = (s, scale, shift, w, b), (s, scale, shift, w, gue)
+    fwd = tconv.affine_relu_tconv.launches
+    bwd = tconv.affine_relu_tconv_backward.launches
+    got = tconv.affine_relu_tconv(*fwd_args)
+    got_bwd = tconv.affine_relu_tconv_backward(*bwd_args)
+    torch.cuda.synchronize()
+    assert tconv.affine_relu_tconv.launches == fwd + 1
+    assert tconv.affine_relu_tconv_backward.launches == bwd + 1
+    _check_forward(got, tconv.affine_relu_tconv_reference(*fwd_args), dtype)
+    _check_backward(got_bwd,
+                    tconv.affine_relu_tconv_backward_reference(*bwd_args),
+                    dtype)
+    again = tconv.affine_relu_tconv(*fwd_args)
+    again_bwd = tconv.affine_relu_tconv_backward(*bwd_args)
+    for p, q in zip(got + got_bwd, again + again_bwd):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.gpu
+def test_f32_kernels_take_an_unaligned_input(cuda):
+    """A contiguous view that starts 4 bytes into its storage: the f32
+    kernels stage it by 4-byte loads instead of 16-byte ones."""
+    s, scale, shift, w, b, gue = _inputs(20, 64, torch.float32, cuda)
+    flat = torch.empty(s.numel() + 1, device=cuda)
+    view = flat[1:].view(s.shape)
+    view.copy_(s)
+    got = tconv.affine_relu_tconv(view, scale, shift, w, b)
+    got_bwd = tconv.affine_relu_tconv_backward(view, scale, shift, w, gue)
+    _check_forward(got, tconv.affine_relu_tconv_reference(
+        s, scale, shift, w, b), torch.float32)
+    _check_backward(got_bwd, tconv.affine_relu_tconv_backward_reference(
+        s, scale, shift, w, gue), torch.float32)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_padding_is_zero_after_the_affine(cuda, dtype):
     """At a large positive shift, relu(shift) leaking into the halo rows
