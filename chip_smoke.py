@@ -75,12 +75,20 @@ so the exit code is not 0.
    ``pad_frames_operator(300, 250)`` padded to 512-row tiles), at both
    lambdas, TF32 off: the error of each output, two backward launches bit
    for bit, the dense route against the spline route, CUDA-event times of
-   kernel, plain and the operator products alone (``torch.matmul``). Then
-   ``radar_dense_path``: ``radar_return_fused`` forward and backward
-   through autograd to x, loc and lambda, as the JAX package's
-   ``scripts/bench_spec_decompose.py`` drives it: one launch of each
-   kernel, finite gradients, and the times of forward and forward +
-   backward beside the spline route's.
+   kernel, plain and the operator products alone (``torch.matmul``); the
+   operator's band (``radar.dense_band``: the widths of a 64-row block's
+   and a 4,096-row split's band, mean and largest, and the band pass's
+   time) and the bounds counted over the entries the forward contracts,
+   with the dense count beside them (``*_dense_bound_ms``). #8's time
+   takes in its band pass; #9 is timed as the main path runs it, on the
+   forward's band. Then ``radar_dense_path``:
+   ``radar_return_fused`` forward and backward through autograd to x, loc
+   and lambda, as the JAX package's ``scripts/bench_spec_decompose.py``
+   drives it: one launch of each kernel, finite gradients, the times of
+   forward and forward + backward beside the spline route's, and one
+   profiler pass over a forward and backward (``glue_profile``: the
+   device time of #8/#9 and of the plain-torch glue around them, and the
+   glue's largest kernels and operators).
 10. ``stft_kernel``: the STFT log-magnitude kernels (#10, #11) against their
     plain versions on that radar return (16 x 75,000 samples, n_fft 256,
     hop 16: 4,688 frames), the same readings.
@@ -343,6 +351,20 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def band_stats(w, t_out):
+    """The band the dense kernels contract (``radar.dense_band``) for the
+    first ``t_out`` rows of ``w``, and its record: the widths of a 64-row
+    block's and a 4,096-row split's band, mean and largest, and the band
+    pass's time (CUDA events)."""
+    band = radar.dense_band(w, t_out)
+    record = {"band_ms": cuda_ms(lambda: radar.dense_band(w, t_out))}
+    for name, b in zip(("tile", "split"), band):
+        width = (b[:, 1] - b[:, 0]).double()
+        record.update({f"band_{name}_mean": width.mean().item(),
+                       f"band_{name}_max": width.max().item()})
+    return band, record
 
 
 def nbytes(*tensors):
@@ -1028,39 +1050,52 @@ def compare_fused_tconv(name, summary):
           f"does not beat the fused one ({fused_ms} ms, {fused_mb} MB)")
 
 
-def device_profile(run, steps):
-    """Device time by kernel name and the device's idle share over
-    ``steps`` calls of ``run``, from a torch.profiler trace."""
+def trace(run, steps):
+    """One ``torch.profiler`` trace of ``steps`` calls of ``run``: the
+    profiler, the device's busy and idle time per step, and its device
+    time by kernel name (us, all steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
         for _ in range(steps):
             run()
+        torch.cuda.synchronize()
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
         for e in prof.events() if e.device_type == DeviceType.CUDA
     )
     if not spans:
-        return {"device_events": 0}
+        return prof, {"device_events": 0}, {}
     busy, end, by_name = 0.0, spans[0][0], {}
     for start, stop, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
     span = end - spans[0][0]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    return {
+    return prof, {
         "device_events": len(spans),
         "busy_ms_per_step": busy / 1e3 / steps,
         "span_ms_per_step": span / 1e3 / steps,
         "idle_share": 1.0 - busy / span,
-        "top_kernels_ms_per_step": {
-            name[:120]: us / 1e3 / steps for name, us in top
-        },
-    }
+    }, by_name
+
+
+def largest(times_us, steps=1, top=15):
+    """The ``top`` entries of ``times_us`` in ms per step, names cut to 120
+    characters."""
+    return {name[:120]: us / 1e3 / steps for name, us in
+            sorted(times_us.items(), key=lambda kv: -kv[1])[:top]}
+
+
+def device_profile(run, steps):
+    """Device time by kernel name and the device's idle share over
+    ``steps`` calls of ``run``, from a torch.profiler trace."""
+    _, summary, by_name = trace(run, steps)
+    return {**summary, "top_kernels_ms_per_step": largest(by_name, steps)}
 
 
 def phase_train(device):
@@ -1288,8 +1323,17 @@ def phase_radar_dense_kernel(device):
     gim = torch.randn(SPEC_BATCH, t_out, generator=g, device=device)
     em = src.shape[2] // 3
     pairs = SPEC_BATCH * t_out * em
-    # one product of the operator's rows with one feature set
+    band, band_record = band_stats(w, t_out)
+    # the operator's entries the forward contracts: each row over its
+    # 64-row block's band. The backward needs those and no more (its
+    # transposed products walk a 4,096-row split's wider band: this
+    # design's own extra work, not the function's)
+    band_entries = ((band[0][:, 1] - band[0][:, 0]).double()
+                    .repeat_interleave(64)[:t_out].sum().item())
+    # one product of the operator's rows with one feature set: dense, and
+    # over the band
     product = 2 * SPEC_BATCH * t_out * SPEC_T * 3 * em
+    band_product = 2 * SPEC_BATCH * band_entries * 3 * em
     entries = {}
     for lam_v in LAMBDAS:
         lam = torch.tensor(lam_v, device=device)
@@ -1313,11 +1357,24 @@ def phase_radar_dense_kernel(device):
                              (rel_err(p, q) for p, q in zip(out, spline))))
         record = {}
         if lam_v == LAMBDAS[0]:
-            fwd_bound = bound(2 * product + DENSE_FWD_OPS * pairs,
-                              nbytes(op, src, dst, c, loc, lam, *out), "f32")
-            bwd_bound = bound(
-                4 * product + DENSE_BWD_OPS * pairs,
-                nbytes(op, src, dst, c, loc, lam, gre, gim, *got), "f32")
+            # #8's wrapper finds the band, so it reads the whole operator;
+            # #9 is timed as the main path runs it, on the forward's band,
+            # and reads the operator over the band alone
+            fwd_bytes = nbytes(op, src, dst, c, loc, lam, *out)
+            bwd_bytes = nbytes(src, dst, c, loc, lam, gre, gim, *got)
+            fwd_bound = bound(2 * band_product + DENSE_FWD_OPS * pairs,
+                              fwd_bytes, "f32")
+            bwd_bound = bound(4 * band_product + DENSE_BWD_OPS * pairs,
+                              bwd_bytes + 4 * band_entries + nbytes(*band),
+                              "f32")
+            # the count before the band: every product over all of T_in
+            record = {
+                "radar_dense_fwd_dense_bound_ms": bound(
+                    2 * product + DENSE_FWD_OPS * pairs, fwd_bytes, "f32")[0],
+                "radar_dense_bwd_dense_bound_ms": bound(
+                    4 * product + DENSE_BWD_OPS * pairs,
+                    bwd_bytes + nbytes(op), "f32")[0],
+            }
             entries = {
                 "radar_dense_fwd": {
                     "ms": cuda_ms(lambda: radar.dense_radar(*args, t_out)),
@@ -1330,8 +1387,8 @@ def phase_radar_dense_kernel(device):
                                                    torch.matmul(w, dst))),
                 },
                 "radar_dense_bwd": {
-                    "ms": cuda_ms(lambda: radar.dense_radar_backward(
-                        *args, gre, gim, t_out)),
+                    "ms": cuda_ms(lambda: radar._dense_backward(
+                        w, band, *args[1:], gre, gim, t_out)),
                     "plain_ms": cuda_ms(
                         lambda: radar.dense_radar_backward_reference(
                             *args, gre, gim, t_out), 5, 1),
@@ -1347,13 +1404,14 @@ def phase_radar_dense_kernel(device):
                 torch.matmul(w, src), torch.matmul(w, dst),
                 torch.matmul(w.T, g_rows[0]), torch.matmul(w.T, g_rows[1])))
             del g_rows
-            record = {f"{k}_{m}": v[m] for k, v in entries.items() for m in v}
+            record.update({f"{k}_{m}": v[m] for k, v in entries.items()
+                           for m in v})
         emit(
             "radar_dense_kernel", lam=lam_v, n=SPEC_BATCH, t_out=t_out,
             t_pad=t_pad, rel_err=fwd_err, bwd_rel_err=bwd_err,
             rel_tol=RADAR_TOL[lam_v], bit_identical=bit_identical,
             dlambda=got[4].item(), spline_route_rel_err=route_err,
-            spline_route_rel_tol=ROUTE_TOL[lam_v], **record,
+            spline_route_rel_tol=ROUTE_TOL[lam_v], **band_record, **record,
         )
         check(bit_identical,
               f"radar_dense_bwd repeats differ at lambda {lam_v}")
@@ -1406,14 +1464,52 @@ def dense_path(device, x, op, loc):
         with torch.no_grad():
             times[f"{route}_forward_ms"] = cuda_ms(routes[route], 10, 2)
         times[f"{route}_train_ms"] = cuda_ms(lambda: train(route), 10, 2)
+    glue = glue_profile(lambda: train("dense"))
     emit("radar_dense_path", n=SPEC_BATCH, lam=LAMBDAS[0],
-         forward_launches=forward, launches=launches, finite=finite, **times)
+         forward_launches=forward, launches=launches, finite=finite, **times,
+         glue_profile=glue)
+    check(glue["dense_kernels_ms"] > 0,
+          f"the profile found no kernel of #8/#9: {glue}")
     check(forward == {"radar_dense_fwd": 1, "radar_dense_bwd": 0}
           and launches == {"radar_dense_fwd": 1, "radar_dense_bwd": 1},
           f"radar_return_fused launched {forward} forward, {launches} in "
           f"all; predicted one of each")
     check(all(finite.values()), f"non-finite dense gradients: {finite}")
     return launches
+
+
+# the kernels of #8 and #9 (csrc/radar_dense_{fwd,bwd}.cu) as the profiler
+# names them, in the sources' anonymous namespace, demangled or not
+DENSE_KERNEL_NAME = re.compile(
+    r"(^(void )?\(anonymous namespace\)::|^_ZN\d+_GLOBAL__N_\w*?\d)"
+    r"(radar_dense_fwd_kernel|rows_kernel|wt_kernel|reduce_kernel|"
+    r"scalar_sums_kernel)")
+
+
+def glue_profile(run, top=10):
+    """One :func:`trace` of ``run`` (a forward and backward of
+    ``radar_return_fused``): the device time of kernels #8/#9 and of the
+    rest (the op's plain-torch glue), and the glue's largest kernels by
+    name and operators by self device time."""
+    from torch.autograd import DeviceType
+
+    prof, summary, by_name = trace(run, 1)
+    glue = {k: v for k, v in by_name.items() if not DENSE_KERNEL_NAME.match(k)}
+    ops = {}  # host operators, less the Function around the kernels
+    for avg in prof.key_averages():
+        us = getattr(avg, "self_device_time_total", None)
+        if us is None:
+            us = avg.self_cuda_time_total
+        if (avg.device_type == DeviceType.CPU and us > 0
+                and "DenseRadar" not in avg.key):
+            ops[avg.key] = us
+    return {
+        **summary,
+        "dense_kernels_ms": (sum(by_name.values()) - sum(glue.values())) / 1e3,
+        "glue_kernels_ms": sum(glue.values()) / 1e3,
+        "top_glue_kernels_ms": largest(glue, top=top),
+        "top_glue_ops_self_ms": largest(ops, top=top),
+    }
 
 
 def phase_stft_kernel(device, radar_re, radar_im):

@@ -5,16 +5,32 @@ upsampled 250x, lambda = 5e-4, f32, TF32 off). From the repository root:
 
     python scripts/torch_radar_dense_bench.py profile
     python scripts/torch_radar_dense_bench.py variants
+    python scripts/torch_radar_dense_bench.py ab PARENT [PAIRS]
+
+``profile`` and ``variants`` first print the operator's band
+(``radar.dense_band``: the widths of a 64-row block's and a 4,096-row
+split's band, mean and largest) and the band pass's time (CUDA events).
 
 ``profile``: device time by kernel name of one call of each wrapper
-(``torch.profiler``, 3 calls), which splits #9 into its four kernels.
+(``torch.profiler``, 3 calls; each wrapper call finds the band too),
+which splits #9 into its four kernels.
 
 ``variants``: builds copies of ``csrc/`` with the source substitutions of
 ``VARIANTS`` (one ``nvcc`` each, at once, with ``ops/build.py``'s flags),
-and times each build's entry points side by side (CUDA events, two
-readings of 10 calls after 2 warm-up), with its registers and spills and
-its largest error against the plain versions. A tool for redesigning the
-kernels: the port never loads these builds.
+and times each build's entry points side by side on the band found once
+(CUDA events, two readings of 10 calls after 2 warm-up), with its
+registers and spills and its largest error against the plain versions.
+A tool for redesigning the kernels: the port never loads these builds.
+
+``ab``: the end-to-end op, this checkout against another (``PARENT``, the
+root of a checkout of the port) on one card: ``chip_smoke.py``'s
+``radar_dense_path`` (``radar_return_fused`` forward and forward +
+backward, and the spline route, CUDA events over 10 calls) of each, in
+``PAIRS`` pairs (default 10) of processes of their own, in turns (parent,
+change, change, parent, ...), each checkout's own ``chip_smoke.py`` and
+kernels; then the median and quartiles of each time on each side and the
+median of the pairs' differences. The path waits on the host's launches,
+so its times move from run to run: compare only inside one call.
 
 Each prints JSON lines and, last, the card's name and power limit.
 """
@@ -25,6 +41,7 @@ import ctypes
 import json
 import pathlib
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -44,21 +61,30 @@ from skeleton_action_recognition_tpu_torch.ops import (  # noqa: E402
 
 # name -> [(file under csrc/, text, replacement)], each against the sources
 # of the checkout
+DENSE_ROWS = [
+    ("radar_dense_fwd.cu",
+     "band[2 * blockIdx.y],\n" + " " * 25 + "band[2 * blockIdx.y + 1]",
+     "0, t_in"),
+    ("radar_dense_bwd.cu",
+     "band[2 * tile],\n" + " " * 27 + "band[2 * tile + 1]",
+     "0, t_in"),
+]
+DENSE_TRANSPOSED = [
+    ("radar_dense_bwd.cu",
+     "const int m_end = split_band[2 * split + 1];\n"
+     "  const int m0 = split_band[2 * split] +",
+     "const int m_end = t_in;\n  const int m0 ="),
+    ("radar_dense_bwd.cu",
+     "if (split_band[2 * s] <= m && m < split_band[2 * s + 1]) {",
+     "if (true) {"),
+]
 VARIANTS = {
     "as built": [],
-    "row blocks: one an SM": [
-        ("radar_dense_tile.cuh",
-         "return threads <= kTwoBlockThreads ? 2 : 1;", "return 1;"),
-    ],
-    "row blocks: three an SM": [
-        ("radar_dense_tile.cuh",
-         "return threads <= kTwoBlockThreads ? 2 : 1;",
-         "return threads <= kTwoBlockThreads ? 3 : 1;"),
-    ],
-    "transposed products: four blocks an SM": [
-        ("radar_dense_bwd.cu", "constexpr int kWtBlocks = 5;",
-         "constexpr int kWtBlocks = 4;"),
-    ],
+    # the row blocks over their band, the transposed products over all of
+    # T_in
+    "banded rows, dense transposed products": DENSE_TRANSPOSED,
+    # every contraction over all of T_in
+    "dense": DENSE_ROWS + DENSE_TRANSPOSED,
 }
 
 
@@ -78,12 +104,15 @@ def inputs(device):
     gre = torch.randn(cs.SPEC_BATCH, t_out, generator=g, device=device)
     gim = torch.randn(cs.SPEC_BATCH, t_out, generator=g, device=device)
     args = (w, src, dst, c, loc, lam)
-    return (args, gre, gim, t_out, radar.dense_radar_reference(*args, t_out),
+    band, record = cs.band_stats(w, t_out)
+    print(json.dumps(record), flush=True)
+    return (args, band, gre, gim, t_out,
+            radar.dense_radar_reference(*args, t_out),
             radar.dense_radar_backward_reference(*args, gre, gim, t_out))
 
 
 def profile(device):
-    args, gre, gim, t_out, _, _ = inputs(device)
+    args, _, gre, gim, t_out, _, _ = inputs(device)
     for name, fn in (
         ("radar_dense_fwd", lambda: radar.dense_radar(*args, t_out)),
         ("radar_dense_bwd", lambda: radar.dense_radar_backward(
@@ -95,7 +124,7 @@ def profile(device):
               flush=True)
 
 
-def entry_points(libs, args, gre, gim, t_out):
+def entry_points(libs, args, band, gre, gim, t_out):
     """Closures calling a build's two C entry points (``libs``: the
     forward's and the backward's library) on fresh outputs, and those
     outputs."""
@@ -111,14 +140,14 @@ def entry_points(libs, args, gre, gim, t_out):
         n * t_out * 6 * emp, splits * n * t_in * 6 * emp, n * tiles * em,
         n * tiles * 4)]
     fwd = libs[0].radar_dense_fwd_f32
-    fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     bwd = libs[1].radar_dense_bwd_f32
-    bwd.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [
+    bwd.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
-    fwd_ptrs = [t.data_ptr() for t in (*args, *fwd_out)]
-    bwd_ptrs = [t.data_ptr() for t in (*args, gre, gim, *bwd_out,
-                                       *workspace)]
+    fwd_ptrs = [t.data_ptr() for t in (w, band[0], *args[1:], *fwd_out)]
+    bwd_ptrs = [t.data_ptr() for t in (w, *band, *args[1:], gre, gim,
+                                       *bwd_out, *workspace)]
 
     def call(fn, ptrs):
         err = fn(*ptrs, n, t_in, em, t_out, stream)
@@ -130,7 +159,7 @@ def entry_points(libs, args, gre, gim, t_out):
 
 
 def variants(device):
-    args, gre, gim, t_out, want_fwd, want_bwd = inputs(device)
+    args, band, gre, gim, t_out, want_fwd, want_bwd = inputs(device)
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
         for i, (name, subs) in enumerate(VARIANTS.items()):
@@ -153,8 +182,8 @@ def variants(device):
                 raise RuntimeError(f"{name}: nvcc failed\n{log}")
             libs = [ctypes.CDLL(str(pathlib.Path(tmp) / str(i) / f"{stem}.so"))
                     for stem in ("radar_dense_fwd", "radar_dense_bwd")]
-            fwd, fwd_out, bwd, bwd_out = entry_points(libs, args, gre, gim,
-                                                      t_out)
+            fwd, fwd_out, bwd, bwd_out = entry_points(libs, args, band, gre,
+                                                      gim, t_out)
             fwd()
             bwd()
             torch.cuda.synchronize()
@@ -171,12 +200,75 @@ def variants(device):
             }), flush=True)
 
 
+# one process of ``ab``, run from the root of the checkout to time: its
+# radar kernels built at once, then its ``chip_smoke.py``'s dense path
+PATH_RUN = """
+from concurrent import futures
+import torch
+import chip_smoke as cs
+from skeleton_action_recognition_tpu_torch.ops import build, resample
+cs.phase_env()
+sources = ("radar_fwd.cu", "radar_bwd.cu", "radar_dense_fwd.cu",
+           "radar_dense_bwd.cu")
+with futures.ThreadPoolExecutor(len(sources)) as pool:
+    list(pool.map(build.load_library, sources))
+device = torch.device("cuda", 0)
+x = torch.from_numpy(cs.spec_clips(cs.SPEC_BATCH, cs.SEED)[0]).to(device)
+op = resample.pad_frames_operator(cs.SPEC_T, cs.SPEC_UP)
+cs.dense_path(device, x, torch.from_numpy(op).to(device),
+              torch.tensor([0.1, -0.2, 0.3], device=device))
+"""
+AB_TIMES = ("dense_forward_ms", "dense_train_ms", "spline_forward_ms",
+            "spline_train_ms")
+
+
+def path_times(root):
+    """``AB_TIMES`` of one ``radar_dense_path`` of the checkout at
+    ``root``, in a process of its own."""
+    proc = subprocess.run([sys.executable, "-c", PATH_RUN], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"{root}: exit {proc.returncode}\n"
+                           f"{proc.stderr[-4000:]}")
+    line = next(json.loads(text) for text in proc.stdout.splitlines()
+                if '"phase": "radar_dense_path"' in text)
+    return {name: line[name] for name in AB_TIMES}
+
+
+def ab(parent, pairs):
+    roots = {"parent": pathlib.Path(parent).resolve(), "change": REPO}
+    runs = {"parent": [], "change": []}
+    for i in range(pairs):
+        for side in (("parent", "change"), ("change", "parent"))[i % 2]:
+            runs[side].append(path_times(roots[side]))
+            print(json.dumps({"ab_run": side, "pair": i, **runs[side][-1]}),
+                  flush=True)
+    summary = {}
+    for name in AB_TIMES:
+        for side, times in runs.items():
+            values = [t[name] for t in times]
+            q1, _, q3 = statistics.quantiles(values, n=4)
+            summary[f"{side}_{name}"] = {
+                "q1": q1, "median": statistics.median(values), "q3": q3}
+        diffs = [c[name] - p[name]
+                 for c, p in zip(runs["change"], runs["parent"])]
+        summary[f"change_minus_parent_{name}"] = {
+            "median": statistics.median(diffs),
+            "change_slower": sum(d > 0 for d in diffs), "pairs": len(diffs)}
+    print(json.dumps({"ab_summary": summary}), flush=True)
+
+
 def main():
-    if len(sys.argv) != 2 or sys.argv[1] not in ("profile", "variants"):
+    args = sys.argv[1:]
+    if not (args[:1] in (["profile"], ["variants"]) and len(args) == 1
+            or args[:1] == ["ab"] and len(args) in (2, 3)):
         raise SystemExit(__doc__)
     cs.phase_env()  # raises without a card
-    {"profile": profile, "variants": variants}[sys.argv[1]](
-        torch.device("cuda", 0))
+    if args[0] == "ab":
+        ab(args[1], int(args[2]) if len(args) == 3 else 10)
+    else:
+        {"profile": profile, "variants": variants}[args[0]](
+            torch.device("cuda", 0))
     print(cs.nvidia_smi_line())
 
 

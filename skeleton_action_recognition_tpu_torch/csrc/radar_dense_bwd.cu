@@ -12,29 +12,40 @@
 //     dc[n, p]      = sum_t g_c[n, t, p]
 //     dloc, dlambda = sums over every sample, row and pair.
 //
-// What bounds it on the H100: four contractions of 2 N t_out T_in 3 EM
-// FLOP each, 415 GFLOP at the trainer's shape (~6.2 ms at the 67 TFLOP/s
-// f32 peak), the recomputed positions and the transposed products; the
-// per-pair math (57.6 M pairs, ~150 operations each) adds ~0.13 ms. The
-// TPU kernel added every tile's dsrc into one block of its output across a
+// What bounds it on the H100: four contractions over the entries of the
+// operator the forward contracted (ops/radar.py::dense_band), 415 GFLOP
+// dense at the trainer's shape and 4 x 2 N t_out W 3 EM over the band, with
+// W = 38.7 the mean band of a 64-row block: 53.5 GFLOP, ~0.80 ms at the 67
+// TFLOP/s f32 peak (dense ~6.2 ms); the per-pair math (57.6 M pairs, 144
+// operations each) adds ~0.12 ms, ~0.92 ms in all. The transposed products
+// here walk a 4,096-row split's band, W_s = 52.5 (below), ~10.6 GFLOP
+// (~0.16 ms) more than the function needs. The bytes (the band's 12 MB of
+// the operator, 11 MB of features and their gradients, 9.6 MB of
+// cotangents; the 1.38 GB g below is this design's) ~0.01 ms. The TPU
+// kernel added every tile's dsrc into one block of its output across a
 // grid that runs in order; here blocks run in no order, there are no float
 // atomics, and a block cannot hold a sample's (T_in, 6 EM) partial (345 KB
 // at T_in = 300). So four kernels, each sum in an order fixed by the
-// shapes alone (two launches on the same inputs agree bit for bit):
-//   1. rows_kernel: the forward's position tile (radar_dense_tile.cuh),
-//      put in shared memory, then the per-pair cotangents, a thread a
-//      pair. g_src/g_dst go to a workspace g (N, t_out, 6 EM_pad), f32,
-//      1.38 GB at the trainer's shape; each block's dc (its 64 rows, in
-//      order) and its dloc/dlambda (its threads, in order) to small
-//      workspaces.
+// shapes and the band alone (two launches on the same inputs agree bit for
+// bit):
+//   1. rows_kernel: the forward's position tile over the block's band
+//      (radar_dense_tile.cuh), put in shared memory, then the per-pair
+//      cotangents, a thread a pair. g_src/g_dst go to a workspace g (N,
+//      t_out, 6 EM_pad), f32, 1.38 GB at the trainer's shape; each block's
+//      dc (its 64 rows, in order) and its dloc/dlambda (its threads, in
+//      order) to small workspaces.
 //   2. wt_kernel: ws_part[s] = w[rows of split s]^T g, a GEMM with T_in on
 //      the rows, over a fixed split of t_out into kSplitRows rows (19
-//      splits at t_out = 75,000: ws_part 105 MB). Blocks that run at once
-//      share an operator and a g chunk in L2, so each is read from device
-//      memory about once.
-//   3. reduce_kernel: dsrc/ddst sum the splits in order, dc the row tiles;
-//      scalar_sums_kernel: dloc and dlambda over every block of
-//      rows_kernel, strided partials and then a fixed tree.
+//      splits at t_out = 75,000), for the split's band [m_lo, m_hi) of
+//      T_in alone: one 64-row tile of T_in at the trainer's operator (at
+//      most 56 rows), where the dense product took five. The split's band
+//      is the union of its row blocks', so it holds every entry the
+//      forward contracted. Blocks that run at once share an operator band
+//      and a g chunk in L2, so each is read from device memory about once.
+//   3. reduce_kernel: dsrc/ddst sum, in split order, the splits whose band
+//      holds the row; dc sums the row tiles; scalar_sums_kernel: dloc and
+//      dlambda over every block of rows_kernel, strided partials and then a
+//      fixed tree.
 // Rows at or past t_out have a zero cotangent (the forward cut them) and
 // are skipped.
 //
@@ -84,7 +95,8 @@ __host__ __device__ inline size_t rows_smem_floats(int em) {
 template <int max_threads>
 __global__ void __launch_bounds__(max_threads,
                                   radar_dense::min_blocks<max_threads>())
-rows_kernel(const float* __restrict__ w, const float* __restrict__ src,
+rows_kernel(const float* __restrict__ w, const int* __restrict__ band,
+            const float* __restrict__ src,
             const float* __restrict__ dst, const float* __restrict__ cvec,
             const float* __restrict__ loc, const float* __restrict__ lam,
             const float* __restrict__ gre_in,
@@ -104,7 +116,8 @@ rows_kernel(const float* __restrict__ w, const float* __restrict__ src,
   // below does not hold its registers beside the 96 accumulators
   {
     float acc[6][kRowsPerThread][kPairsPerThread];
-    radar_dense::positions(w, src, dst, n, row0, t_in, t_out, em, smem, acc);
+    radar_dense::positions(w, src, dst, n, row0, band[2 * tile],
+                           band[2 * tile + 1], t_in, t_out, em, smem, acc);
     const int rg = tid % kRowGroups;
     const int pg = tid / kRowGroups;
 #pragma unroll
@@ -182,19 +195,19 @@ rows_kernel(const float* __restrict__ w, const float* __restrict__ src,
 }
 
 // Start the copies of one step of wt_kernel (rows t0 .. t0 + kWtDepth - 1
-// of split rows [.., t_end)) into s_a (kWtDepth, kWtRows) and s_b
-// (kWtDepth, kWtCols).
+// of split rows [.., t_end), columns m0 .. of w below m_end) into s_a
+// (kWtDepth, kWtRows) and s_b (kWtDepth, kWtCols).
 __device__ __forceinline__ void wt_stage(const float* __restrict__ w,
                                          const float* __restrict__ g_n,
-                                         int t0, int t_end, int m0, int c0,
-                                         int t_in, int cols, float* s_a,
-                                         float* s_b) {
+                                         int t0, int t_end, int m0, int m_end,
+                                         int c0, int t_in, int cols,
+                                         float* s_a, float* s_b) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int e = tid; e < kWtDepth * kWtRows; e += kWtThreads) {
     const int tt = e / kWtRows, m = e % kWtRows;
     const int t = t0 + tt;
-    const bool ok = t < t_end && m0 + m < t_in;
+    const bool ok = t < t_end && m0 + m < m_end;
     radar_dense::cp_async_f32(s_a + e, ok ? w + (size_t)t * t_in + m0 + m : w,
                               ok);
   }
@@ -209,19 +222,23 @@ __device__ __forceinline__ void wt_stage(const float* __restrict__ w,
 }
 
 // ws_part[s, n, m, col] = sum over rows t of split s (t < t_out) of
-// w[t, m] * g[n, t, col], for m < t_in and col < 6 emp, in t order; two
-// steps in flight (cp.async).
+// w[t, m] * g[n, t, col], for m in the split's band [m_lo, m_hi) and col <
+// 6 emp, in t order; two steps in flight (cp.async). The grid has the
+// m-tiles of all of T_in; those past the band return at once, and rows of
+// ws_part outside the band are never written.
 __global__ void __launch_bounds__(kWtThreads, kWtBlocks)
-wt_kernel(const float* __restrict__ w, const float* __restrict__ g,
-          float* __restrict__ ws_part, int n_samples, int t_in, int cols,
-          int t_out) {
+wt_kernel(const float* __restrict__ w, const int* __restrict__ split_band,
+          const float* __restrict__ g, float* __restrict__ ws_part,
+          int n_samples, int t_in, int cols, int t_out) {
   __shared__ __align__(16) float s_a[2][kWtDepth * kWtRows];
   __shared__ __align__(16) float s_b[2][kWtDepth * kWtCols];
+  const int split = blockIdx.z;
   const int m_tiles = (t_in + kWtRows - 1) / kWtRows;
-  const int m0 = (blockIdx.x % m_tiles) * kWtRows;
+  const int m_end = split_band[2 * split + 1];
+  const int m0 = split_band[2 * split] + (blockIdx.x % m_tiles) * kWtRows;
+  if (m0 >= m_end) return;
   const int c0 = (blockIdx.x / m_tiles) * kWtCols;
   const int n = blockIdx.y;
-  const int split = blockIdx.z;
   const int t_begin = split * kSplitRows;
   const int t_end = min(t_out, t_begin + kSplitRows);
   const int tid = threadIdx.x;
@@ -235,13 +252,14 @@ wt_kernel(const float* __restrict__ w, const float* __restrict__ g,
 
   const float* g_n = g + (size_t)n * t_out * cols;
   const int steps = (t_end - t_begin + kWtDepth - 1) / kWtDepth;
-  wt_stage(w, g_n, t_begin, t_end, m0, c0, t_in, cols, s_a[0], s_b[0]);
+  wt_stage(w, g_n, t_begin, t_end, m0, m_end, c0, t_in, cols, s_a[0],
+           s_b[0]);
   radar_dense::cp_async_commit();
   for (int step = 0; step < steps; ++step) {
     if (step + 1 < steps) {
       const int next = (step + 1) % 2;
-      wt_stage(w, g_n, t_begin + (step + 1) * kWtDepth, t_end, m0, c0, t_in,
-               cols, s_a[next], s_b[next]);
+      wt_stage(w, g_n, t_begin + (step + 1) * kWtDepth, t_end, m0, m_end,
+               c0, t_in, cols, s_a[next], s_b[next]);
       radar_dense::cp_async_commit();
       radar_dense::cp_async_wait<1>();
     } else {
@@ -273,7 +291,7 @@ wt_kernel(const float* __restrict__ w, const float* __restrict__ g,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + ty * 8 + i;
-    if (m >= t_in) continue;
+    if (m >= m_end) continue;
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
       const int col = c0 + tx + 16 * j;
@@ -282,11 +300,13 @@ wt_kernel(const float* __restrict__ w, const float* __restrict__ g,
   }
 }
 
-// dsrc/ddst[n, m, (c % 3) em + p] = sum_s ws_part[s, n, m, c emp + p];
-// dc[n, p] = sum over row tiles of ws_dc. Each output one thread, in index
-// order.
+// dsrc/ddst[n, m, (c % 3) em + p] = sum over the splits s whose band
+// holds m of ws_part[s, n, m, c emp + p], in split order (0 where none
+// does); dc[n, p] = sum over row tiles of ws_dc. Each output one thread,
+// in index order.
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_kernel(const float* __restrict__ ws_part,
+              const int* __restrict__ split_band,
               const float* __restrict__ ws_dc, float* __restrict__ dsrc,
               float* __restrict__ ddst, float* __restrict__ dc,
               int n_samples, int t_in, int em, int splits, int tiles) {
@@ -297,14 +317,18 @@ reduce_kernel(const float* __restrict__ ws_part,
     const bool is_dst = idx >= feats;
     const size_t f_idx = is_dst ? idx - feats : idx;
     const size_t nm = f_idx / (3 * em);  // n * t_in + m
+    const int m = (int)(nm % t_in);
     const int f = (int)(f_idx % (3 * em));
     const int c = f / em + (is_dst ? 3 : 0);
     const int p = f % em;
     const size_t stride = (size_t)n_samples * t_in * 6 * emp;
     const float* part = ws_part + nm * 6 * emp + c * emp + p;
     float acc = 0.0f;
-#pragma unroll 4
-    for (int s = 0; s < splits; ++s) acc += part[s * stride];
+    for (int s = 0; s < splits; ++s) {
+      if (split_band[2 * s] <= m && m < split_band[2 * s + 1]) {
+        acc += part[s * stride];
+      }
+    }
     (is_dst ? ddst : dsrc)[f_idx] = acc;
   } else if (idx < 2 * feats + (size_t)n_samples * em) {
     const size_t o = idx - 2 * feats;
@@ -338,11 +362,11 @@ scalar_sums_kernel(const float* __restrict__ ws_s, float* __restrict__ dloc,
 }
 
 template <int max_threads>
-cudaError_t launch_rows(const float* w, const float* src, const float* dst,
-                        const float* c, const float* loc, const float* lam,
-                        const float* gre, const float* gim, float* g,
-                        float* ws_dc, float* ws_s, int n, int tiles, int t_in,
-                        int em, int t_out, cudaStream_t stream) {
+cudaError_t launch_rows(const float* w, const int* band, const float* src,
+                        const float* dst, const float* c, const float* loc,
+                        const float* lam, const float* gre, const float* gim,
+                        float* g, float* ws_dc, float* ws_s, int n, int tiles,
+                        int t_in, int em, int t_out, cudaStream_t stream) {
   const size_t smem = sizeof(float) * rows_smem_floats(em);
   cudaError_t err = cudaFuncSetAttribute(
       rows_kernel<max_threads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -350,21 +374,23 @@ cudaError_t launch_rows(const float* w, const float* src, const float* dst,
   if (err != cudaSuccess) return err;
   rows_kernel<max_threads>
       <<<dim3(n, tiles), radar_dense::block_threads(em), smem, stream>>>(
-          w, src, dst, c, loc, lam, gre, gim, g, ws_dc, ws_s, t_in, em,
-          t_out);
+          w, band, src, dst, c, loc, lam, gre, gim, g, ws_dc, ws_s, t_in,
+          em, t_out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch the four kernels on `stream`; returns the first failed launch's
-// cudaError_t (0 on success). Workspaces, in floats, with tiles =
-// ceil(t_out / 64), splits = ceil(t_out / 4096) and emp = EM rounded up to
-// a multiple of 4: g N t_out 6 emp, ws_part splits N t_in 6 emp, ws_dc N
-// tiles EM, ws_s N tiles 4.
+// cudaError_t (0 on success). With tiles = ceil(t_out / 64), splits =
+// ceil(t_out / 4096) and emp = EM rounded up to a multiple of 4: band
+// (tiles, 2) and split_band (splits, 2), int32 [lo, hi) of T_in
+// (ops/radar.py::dense_band); workspaces, in floats, g N t_out 6 emp,
+// ws_part splits N t_in 6 emp, ws_dc N tiles EM, ws_s N tiles 4.
 extern "C" int radar_dense_bwd_f32(
-    const float* w, const float* src, const float* dst, const float* c,
-    const float* loc, const float* lam, const float* gre, const float* gim,
+    const float* w, const int* band, const int* split_band,
+    const float* src, const float* dst, const float* c, const float* loc,
+    const float* lam, const float* gre, const float* gim,
     float* dsrc, float* ddst, float* dc, float* dloc, float* dlam, float* g,
     float* ws_part, float* ws_dc, float* ws_s, int n, int t_in, int em,
     int t_out, cudaStream_t stream) {
@@ -374,8 +400,8 @@ extern "C" int radar_dense_bwd_f32(
                             radar_dense::kTwoBlockThreads
                         ? launch_rows<radar_dense::kTwoBlockThreads>
                         : launch_rows<radar_dense::kMaxThreads>;
-  cudaError_t err = rows(w, src, dst, c, loc, lam, gre, gim, g, ws_dc, ws_s,
-                         n, tiles, t_in, em, t_out, stream);
+  cudaError_t err = rows(w, band, src, dst, c, loc, lam, gre, gim, g, ws_dc,
+                         ws_s, n, tiles, t_in, em, t_out, stream);
   if (err != cudaSuccess) return err;
 
   const int cols = 6 * emp;
@@ -383,14 +409,15 @@ extern "C" int radar_dense_bwd_f32(
   const int m_tiles = (t_in + kWtRows - 1) / kWtRows;
   const int c_tiles = (cols + kWtCols - 1) / kWtCols;
   wt_kernel<<<dim3(m_tiles * c_tiles, n, splits), kWtThreads, 0, stream>>>(
-      w, g, ws_part, n, t_in, cols, t_out);
+      w, split_band, g, ws_part, n, t_in, cols, t_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const size_t outputs = (size_t)2 * n * t_in * 3 * em + (size_t)n * em;
   reduce_kernel<<<(unsigned)((outputs + kReduceThreads - 1) / kReduceThreads),
-                  kReduceThreads, 0, stream>>>(ws_part, ws_dc, dsrc, ddst, dc,
-                                               n, t_in, em, splits, tiles);
+                  kReduceThreads, 0, stream>>>(ws_part, split_band, ws_dc,
+                                               dsrc, ddst, dc, n, t_in, em,
+                                               splits, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   scalar_sums_kernel<<<4, kReduceThreads, 0, stream>>>(ws_s, dloc, dlam,

@@ -5,26 +5,34 @@
 // row t < t_out, every edge-body pair's endpoints are rows of a dense
 // resampling operator w (T_w >= t_out rows, T_in columns) contracted with
 // the sample's gathered features src/dst (N, T_in, 3 EM), laid out as
-// [x | y | z] blocks of EM columns (radar_dense_tile.cuh), and the return
-// is re + i im = sum_p amp(s, d, c) exp(i phase(s)) with the math of
-// radar_math.cuh. Inputs c (N, EM), loc (3,) and lambda (a scalar) stay on
-// the device. Output re, im (N, t_out): rows of w past t_out (the JAX
-// caller's padding) are never read.
+// [x | y | z] blocks of EM columns, over the row block's band of columns
+// (radar_dense_tile.cuh; `band` (tiles, 2) from ops/radar.py::dense_band),
+// and the return is re + i im = sum_p amp(s, d, c) exp(i phase(s)) with
+// the math of radar_math.cuh. Inputs c (N, EM), loc (3,) and lambda (a
+// scalar) stay on the device. Output re, im (N, t_out): rows of w past
+// t_out (the JAX caller's padding) are never read.
 //
 // Precision: both contractions are f32 FMAs in k order. The JAX kernel
 // pins the src contraction at HIGHEST and leaves dst at the default
 // precision, a bf16 pass on the TPU (exact f32 in interpret mode); here
 // both are f32, no TF32 and no tensor cores.
 //
-// What bounds it on the H100: the two contractions, 4 N t_out T_in 3 EM
-// FLOP (207 GFLOP at the trainer's shape N = 16, t_out = 75,000, T_in =
-// 300, EM = 48: ~3.1 ms at the 67 TFLOP/s f32 peak of the CUDA cores); the
-// per-pair math (57.6 M pairs, each three square roots, two divisions and
-// a precise sincosf) adds ~0.05 ms at that peak, and the bytes (the 90 MB
-// operator, 5.5 MB of features, 9.6 MB out) ~0.03 ms. The design:
+// What bounds it on the H100: the two contractions over the band, 4 N
+// t_out W 3 EM FLOP with W the mean band of a 64-row block (W = 38.7 of
+// T_in = 300 at the trainer's shape N = 16, t_out = 75,000, EM = 48: 26.7
+// GFLOP, ~0.40 ms at the 67 TFLOP/s f32 peak of the CUDA cores; dense, 207
+// GFLOP and ~3.1 ms); the per-pair math (57.6 M pairs, each three square
+// roots, two divisions and a precise sincosf) adds ~0.05 ms at that peak,
+// and the bytes (the band's 12 MB of the 90 MB operator, 5.5 MB of
+// features, 9.6 MB out) ~0.01 ms. The wrapper's band pass reads the whole
+// operator once more. The design:
+//   * the operator is banded: the smoothing and the spline's decay leave
+//     most of a row below f32 rounding of a position (52.6% of the trainer's
+//     operator is exactly zero), so a block contracts only its band, ~3
+//     steps of 16, and reads ~1/8 of the operator;
 //   * the TPU block, a (512, T_in) operator tile against the sample's whole
 //     features, does not fit a block's 227 KB of shared memory (614 KB and
-//     173 KB a feature set); the block walks T_in in steps of 16, as a
+//     173 KB a feature set); the block walks its band in steps of 16, as a
 //     GEMM does, and keeps a 64-row x 288-coordinate position tile in
 //     registers, 96 accumulators a thread (radar_dense_tile.cuh);
 //   * each thread owns its pairs' six coordinates, so the per-pair math
@@ -32,7 +40,7 @@
 //     order: a thread's four, then the pair groups in order, through
 //     shared memory;
 //   * blockIdx.x is the sample: blocks that run at once share an operator
-//     tile in L2, so the operator is read from device memory about once.
+//     band in L2, so the operator is read from device memory about once.
 
 #include <cuda_runtime.h>
 
@@ -50,6 +58,7 @@ template <int max_threads>
 __global__ void __launch_bounds__(max_threads,
                                   radar_dense::min_blocks<max_threads>())
 radar_dense_fwd_kernel(const float* __restrict__ w,
+                       const int* __restrict__ band,
                        const float* __restrict__ src,
                        const float* __restrict__ dst,
                        const float* __restrict__ cvec,
@@ -66,7 +75,9 @@ radar_dense_fwd_kernel(const float* __restrict__ w,
   const int groups = blockDim.x / kRowGroups;
 
   float acc[6][kRowsPerThread][kPairsPerThread];
-  radar_dense::positions(w, src, dst, n, row0, t_in, t_out, em, smem, acc);
+  radar_dense::positions(w, src, dst, n, row0, band[2 * blockIdx.y],
+                         band[2 * blockIdx.y + 1], t_in, t_out, em, smem,
+                         acc);
 
   const float lam_v = lam[0];
   const float k = radar::kFourPi / lam_v;
@@ -113,10 +124,10 @@ radar_dense_fwd_kernel(const float* __restrict__ w,
 }
 
 template <int max_threads>
-cudaError_t launch_fwd(const float* w, const float* src, const float* dst,
-                       const float* c, const float* loc, const float* lam,
-                       float* re, float* im, int n, int t_in, int em,
-                       int t_out, cudaStream_t stream) {
+cudaError_t launch_fwd(const float* w, const int* band, const float* src,
+                       const float* dst, const float* c, const float* loc,
+                       const float* lam, float* re, float* im, int n,
+                       int t_in, int em, int t_out, cudaStream_t stream) {
   const size_t reduce = (size_t)2 * (radar_dense::block_threads(em) /
                                      kRowGroups) * kRows;
   const size_t floats = radar_dense::positions_smem_floats(em);
@@ -128,22 +139,26 @@ cudaError_t launch_fwd(const float* w, const float* src, const float* dst,
   const dim3 grid(n, (t_out + kRows - 1) / kRows);
   radar_dense_fwd_kernel<max_threads>
       <<<grid, radar_dense::block_threads(em), smem, stream>>>(
-          w, src, dst, c, loc, lam, re, im, t_in, em, t_out);
+          w, band, src, dst, c, loc, lam, re, im, t_in, em, t_out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the launch's cudaError_t (0 on success).
-// w is (T_w, t_in) with T_w >= t_out; 1 <= em <= radar_dense::kMaxPairs.
-extern "C" int radar_dense_fwd_f32(const float* w, const float* src,
-                                   const float* dst, const float* c,
-                                   const float* loc, const float* lam,
-                                   float* re, float* im, int n, int t_in,
-                                   int em, int t_out, cudaStream_t stream) {
+// w is (T_w, t_in) with T_w >= t_out; band (ceil(t_out / 64), 2) int32
+// [k_lo, k_hi) a row block, 0 <= k_lo <= k_hi <= t_in; 1 <= em <=
+// radar_dense::kMaxPairs.
+extern "C" int radar_dense_fwd_f32(const float* w, const int* band,
+                                   const float* src, const float* dst,
+                                   const float* c, const float* loc,
+                                   const float* lam, float* re, float* im,
+                                   int n, int t_in, int em, int t_out,
+                                   cudaStream_t stream) {
   const auto go = radar_dense::block_threads(em) <=
                           radar_dense::kTwoBlockThreads
                       ? launch_fwd<radar_dense::kTwoBlockThreads>
                       : launch_fwd<radar_dense::kMaxThreads>;
-  return go(w, src, dst, c, loc, lam, re, im, n, t_in, em, t_out, stream);
+  return go(w, band, src, dst, c, loc, lam, re, im, n, t_in, em, t_out,
+            stream);
 }

@@ -16,12 +16,17 @@
 // times EM_pad / 4 pair groups of kPairsPerThread = 4 consecutive pairs
 // (EM_pad: EM rounded up to a multiple of 4, at most kMaxPairs), so a
 // thread holds the six coordinates of its 4 pairs at its 4 rows, 96 f32
-// accumulators, and can run the per-pair math on them in registers. The
-// contraction walks T_in in steps of kDepth, staging w's rows transposed
+// accumulators, and can run the per-pair math on them in registers.
+//
+// The contraction walks only the block's band [k_lo, k_hi) of T_in
+// (ops/radar.py::dense_band: the columns outside it hold at most 2^-30 of
+// each row's L1 norm, below f32 rounding of a position; ~39 of 300 at the
+// trainer's operator), in steps of kDepth, staging w's rows transposed
 // (kDepth x 64) and the sample's features (kDepth x 6 EM_pad) in shared
 // memory, two steps in flight (cp.async); each k adds one f32 FMA to every
-// accumulator, in the order k = 0, 1, ..., T_in - 1. Rows past t_out and k
-// past T_in are staged as zeros.
+// accumulator, in the order k = k_lo, k_lo + 1, ..., k_hi - 1. Rows past
+// t_out and k at or past k_hi are staged as zeros; w outside the band is
+// never read.
 
 #pragma once
 
@@ -90,20 +95,21 @@ __host__ __device__ inline size_t positions_smem_floats(int em) {
   return 2 * stage_floats(em);
 }
 
-// Start the copies of one step (T_in rows k0 .. k0 + kDepth - 1) into
-// `stage`. The block has 4 emp threads (block_threads), so one pass of
-// them covers 4 of the kDepth * 6 feature rows of emp floats.
+// Start the copies of one step (T_in rows k0 .. k0 + kDepth - 1, those
+// below k_end) into `stage`. The block has 4 emp threads (block_threads),
+// so one pass of them covers 4 of the kDepth * 6 feature rows of emp
+// floats.
 __device__ __forceinline__ void stage_step(
     const float* __restrict__ w, const float* __restrict__ src,
-    const float* __restrict__ dst, size_t feat, int row0, int k0, int t_in,
-    int t_out, int em, int emp, float* stage) {
+    const float* __restrict__ dst, size_t feat, int row0, int k0, int k_end,
+    int t_in, int t_out, int em, int emp, float* stage) {
   const int tid = threadIdx.x;
   float* s_a = stage;
   float* s_b = stage + kDepth * kStrideA;
   for (int e = tid; e < kRows * kDepth; e += blockDim.x) {
     const int r = e / kDepth, kk = e % kDepth;
     const int row = row0 + r, k = k0 + kk;
-    const bool ok = row < t_out && k < t_in;
+    const bool ok = row < t_out && k < k_end;
     cp_async_f32(s_a + kk * kStrideA + r, ok ? w + (size_t)row * t_in + k : w,
                  ok);
   }
@@ -113,7 +119,7 @@ __device__ __forceinline__ void stage_step(
   for (int q = tid / emp; q < kDepth * 6; q += 4) {
     const int kk = q / 6, c = q % 6;
     const int k = k0 + kk;
-    const bool ok = k < t_in && p < em;
+    const bool ok = k < k_end && p < em;
     const float* f = (c < 3 ? src : dst) + feat + (size_t)k * f3 +
                      (c % 3) * em + p;
     cp_async_f32(s_b + q * emp + p, ok ? f : src, ok);
@@ -122,13 +128,14 @@ __device__ __forceinline__ void stage_step(
 
 // acc[c][i][j]: coordinate c (0-2 the source's x, y, z, 3-5 the
 // destination's) of pair pg * 4 + j at row row0 + rg * 4 + i, where rg =
-// threadIdx.x % 16 and pg = threadIdx.x / 16. `smem` holds
-// positions_smem_floats(em) floats, 16-byte aligned. Ends with a barrier,
-// after which the caller may reuse `smem`.
+// threadIdx.x % 16 and pg = threadIdx.x / 16, summed over the columns
+// [k_lo, k_hi) of w. `smem` holds positions_smem_floats(em) floats, 16-byte
+// aligned. Ends with a barrier, after which the caller may reuse `smem`.
 __device__ __forceinline__ void positions(
     const float* __restrict__ w, const float* __restrict__ src,
-    const float* __restrict__ dst, int n, int row0, int t_in, int t_out,
-    int em, float* smem, float acc[6][kRowsPerThread][kPairsPerThread]) {
+    const float* __restrict__ dst, int n, int row0, int k_lo, int k_hi,
+    int t_in, int t_out, int em, float* smem,
+    float acc[6][kRowsPerThread][kPairsPerThread]) {
   const int emp = padded_pairs(em);
   const size_t stage = stage_floats(em);
   const int rg = threadIdx.x % kRowGroups;
@@ -142,13 +149,18 @@ __device__ __forceinline__ void positions(
 #pragma unroll
       for (int j = 0; j < kPairsPerThread; ++j) acc[c][i][j] = 0.0f;
 
-  const int steps = (t_in + kDepth - 1) / kDepth;
-  stage_step(w, src, dst, feat, row0, 0, t_in, t_out, em, emp, smem);
+  const int steps = (k_hi - k_lo + kDepth - 1) / kDepth;
+  if (steps <= 0) {
+    __syncthreads();
+    return;
+  }
+  stage_step(w, src, dst, feat, row0, k_lo, k_hi, t_in, t_out, em, emp,
+             smem);
   cp_async_commit();
   for (int step = 0; step < steps; ++step) {
     if (step + 1 < steps) {
-      stage_step(w, src, dst, feat, row0, (step + 1) * kDepth, t_in, t_out,
-                 em, emp, smem + ((step + 1) % 2) * stage);
+      stage_step(w, src, dst, feat, row0, k_lo + (step + 1) * kDepth, k_hi,
+                 t_in, t_out, em, emp, smem + ((step + 1) % 2) * stage);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

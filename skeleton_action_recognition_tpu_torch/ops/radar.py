@@ -8,11 +8,13 @@ joints are upsampled by a dense ``(T_out, T_in)`` resampling operator
 ``w`` (:func:`..resample.pad_frames_operator`), whose rows are contracted
 with every edge endpoint's gathered features ``src``/``dst (N, T_in, 3
 EM)``. ``csrc/radar_dense_fwd.cu`` (kernel #8, replacing ``_radar_kernel``)
-computes the positions of a block of rows as a matrix product in f32 and
-sums every edge-body pair's return; ``csrc/radar_dense_bwd.cu`` (kernel #9,
-replacing ``_radar_bwd_kernel``) is its VJP with respect to ``src``,
-``dst``, ``c``, ``loc`` and ``lambda``, the operator being a constant.
-:class:`DenseRadar` ties them into an autograd Function;
+computes the positions of a block of rows as a matrix product in f32 over
+the operator's band (:func:`dense_band`: the columns that hold more than
+f32 rounding of a row) and sums every edge-body pair's return;
+``csrc/radar_dense_bwd.cu`` (kernel #9, replacing ``_radar_bwd_kernel``) is
+its VJP with respect to ``src``, ``dst``, ``c``, ``loc`` and ``lambda``,
+the operator being a constant. :class:`DenseRadar` ties them into an
+autograd Function;
 :func:`radar_return_fused` is the op, with the gather and the bone lengths
 (:func:`bone_length_mean_sq`) in plain torch around it.
 
@@ -469,6 +471,53 @@ _DENSE_DEPTH, _DENSE_STRIDE_A = 16, 68
 # operator rows a plain version evaluates at once (the spline versions'
 # chunk of tiles)
 _PLAIN_ROWS = _PLAIN_TILES * TILE
+# The kernels contract each row block only over its band (dense_band): the
+# operator's mass left out on each side of a row is at most this share of
+# the row's L1 norm, 2^-30 in all. A position is a sum of the row's terms
+# rounded in f32 to ~2^-24 of that norm times the features' scale, so what
+# the band drops is 64x below the rounding of the dense f32 sum. On
+# resample.pad_frames_operator(300, 250) the band of a 64-row block is ~39
+# of the 300 columns: the smoothing and the spline's decay make the rest
+# underflow or fall below it.
+_BAND_MASS = 2.0 ** -31
+
+
+def dense_band(w, t_out: int):
+    """The columns the dense kernels contract for the first ``t_out`` rows
+    of the operator ``w (T_w, T_in)``: ``(tiles, splits)``, int32 ``(.., 2)``
+    tensors on ``w``'s device holding ``[k_lo, k_hi)`` for each 64-row
+    block and each 4,096-row split of the transposed products.
+
+    A row's range drops columns from each end while their mass ``sum |w|``
+    stays at most ``_BAND_MASS`` of the row's L1 norm; a block or split
+    takes the union of its rows' ranges. An all-zero row gives an empty
+    range, a block of them ``[T_in, T_in)``. The sums are f64 (within a
+    relative ``T_in 2^-53`` of exact for these nonnegative terms), and the
+    limit is cut by that much, so rounding never drops more mass."""
+    t_in = w.shape[1]
+    prefix = w[:t_out].abs().cumsum(1, dtype=torch.float64)  # sum_{j <= k}
+    l1 = prefix[:, -1:]
+    limit = l1 * (_BAND_MASS - (2 * t_in + 2) * 2.0 ** -53)
+    # the rows' prefix sums are sorted, so a binary search a row finds the
+    # columns k < k_lo (prefix[k] <= limit) and k >= k_hi (l1 - prefix[k -
+    # 1] <= limit; k = 0 only for an all-zero row)
+    k_lo = torch.searchsorted(prefix, limit, right=True)[:, 0]
+    k_hi = (1 + torch.searchsorted(prefix, l1 - limit)[:, 0]
+            - (l1[:, 0] == 0).long())
+
+    def union(lo, hi, rows):
+        pad = -len(lo) % rows  # past t_out: an empty range
+        lo = torch.nn.functional.pad(lo, (0, pad), value=t_in)
+        hi = torch.nn.functional.pad(hi, (0, pad), value=0)
+        return lo.view(-1, rows).amin(1), hi.view(-1, rows).amax(1)
+
+    tile_lo, tile_hi = union(k_lo, k_hi, _DENSE_ROWS)
+    per_split = _DENSE_SPLIT_ROWS // _DENSE_ROWS
+    split_lo, split_hi = union(tile_lo, tile_hi, per_split)
+    return tuple(
+        torch.stack([lo, torch.maximum(lo, hi)], 1).int().contiguous()
+        for lo, hi in ((tile_lo, tile_hi), (split_lo, split_hi))
+    )
 
 
 def bone_length_mean_sq(x_raw, pad_operator,
@@ -582,22 +631,28 @@ def _dense_launch_checks(name, em, **tensors):
     _check_smem(4 * max(staged, positions))
 
 
-def _dense_forward(w, src, dst, c, loc, lam, t_out):
-    """``(re, im)`` through kernel #8 on CUDA, the plain version on the
-    CPU."""
+def _band_for(w, src, t_out):
+    """:func:`dense_band` of ``w`` for the kernels, ``None`` where the
+    tensors lie on the CPU (the plain versions contract every column)."""
+    return None if src.device.type == "cpu" else dense_band(w, t_out)
+
+
+def _dense_forward(w, band, src, dst, c, loc, lam, t_out):
+    """``(re, im)`` through kernel #8 over ``band`` (:func:`dense_band`) on
+    CUDA, the plain version on the CPU."""
     if src.device.type == "cpu":
         return dense_radar_reference(w, src, dst, c, loc, lam, t_out)
     n, t_in, f3 = src.shape
-    _dense_launch_checks("dense radar", f3 // 3, w=w, src=src, dst=dst, c=c,
-                         loc=loc, lam=lam)
+    _dense_launch_checks("dense radar", f3 // 3, w=w, band=band[0], src=src,
+                         dst=dst, c=c, loc=loc, lam=lam)
     re = torch.empty((n, t_out), dtype=torch.float32, device=src.device)
     im = torch.empty_like(re)
     launch(
-        kernel_function("radar_dense_fwd.cu", "radar_dense_fwd_f32", 8, 4),
+        kernel_function("radar_dense_fwd.cu", "radar_dense_fwd_f32", 9, 4),
         "radar_dense_fwd", src.device,
-        w.data_ptr(), src.data_ptr(), dst.data_ptr(), c.data_ptr(),
-        loc.data_ptr(), lam.data_ptr(), re.data_ptr(), im.data_ptr(),
-        n, t_in, f3 // 3, t_out,
+        w.data_ptr(), band[0].data_ptr(), src.data_ptr(), dst.data_ptr(),
+        c.data_ptr(), loc.data_ptr(), lam.data_ptr(), re.data_ptr(),
+        im.data_ptr(), n, t_in, f3 // 3, t_out,
     )
     dense_radar.launches += 1
     return re, im
@@ -607,21 +662,28 @@ def dense_radar_backward(w, src, dst, c, loc, lam, gre, gim, t_out: int):
     """Backward of :func:`dense_radar` through kernel #9: ``(dsrc, ddst,
     dc, dloc, dlam)`` as :func:`dense_radar_backward_reference` returns
     them. A CPU tensor goes to that plain version; a CUDA tensor launches
-    the kernel (counted in ``dense_radar_backward.launches``) or raises.
-    The result is the same bit for bit from launch to launch. At the
-    trainer's shape the kernel takes a 1.5 GB workspace: the rows'
-    cotangents ``(N, t_out, 6 EM)`` and the split products ``(19, N, T_in,
-    6 EM)``."""
+    the kernel over the operator's band (:func:`dense_band`, computed here;
+    counted in ``dense_radar_backward.launches``) or raises. The result is
+    the same bit for bit from launch to launch. At the trainer's shape the
+    kernel takes a 1.5 GB workspace: the rows' cotangents ``(N, t_out, 6
+    EM)`` and the split products ``(19, N, T_in, 6 EM)``."""
     _check_dense(w, src, dst, c, loc, lam, t_out)
     out_shape = (src.shape[0], t_out)
     _check_tensors(src.device, gre=(gre, out_shape), gim=(gim, out_shape))
+    return _dense_backward(w, _band_for(w, src, t_out), src, dst, c, loc,
+                           lam, gre, gim, t_out)
+
+
+def _dense_backward(w, band, src, dst, c, loc, lam, gre, gim, t_out):
+    """:func:`dense_radar_backward` past its checks, over ``band``."""
     if src.device.type == "cpu":
         return dense_radar_backward_reference(w, src, dst, c, loc, lam, gre,
                                               gim, t_out)
     n, t_in, f3 = src.shape
     em = f3 // 3
-    _dense_launch_checks("dense radar", em, w=w, src=src, dst=dst, c=c,
-                         loc=loc, lam=lam, gre=gre, gim=gim)
+    _dense_launch_checks("dense radar", em, w=w, band=band[0],
+                         split_band=band[1], src=src, dst=dst, c=c, loc=loc,
+                         lam=lam, gre=gre, gim=gim)
     cols = 6 * _padded_pairs(em)
     tiles = -(-t_out // _DENSE_ROWS)
     splits = -(-t_out // _DENSE_SPLIT_ROWS)
@@ -637,9 +699,10 @@ def dense_radar_backward(w, src, dst, c, loc, lam, gre, gim, t_out: int):
     ws_dc = workspace(n, tiles, em)
     ws_s = workspace(n, tiles, 4)
     launch(
-        kernel_function("radar_dense_bwd.cu", "radar_dense_bwd_f32", 17, 4),
+        kernel_function("radar_dense_bwd.cu", "radar_dense_bwd_f32", 19, 4),
         "radar_dense_bwd", src.device,
-        w.data_ptr(), src.data_ptr(), dst.data_ptr(), c.data_ptr(),
+        w.data_ptr(), band[0].data_ptr(), band[1].data_ptr(),
+        src.data_ptr(), dst.data_ptr(), c.data_ptr(),
         loc.data_ptr(), lam.data_ptr(), gre.data_ptr(), gim.data_ptr(),
         dsrc.data_ptr(), ddst.data_ptr(), dc.data_ptr(), dloc.data_ptr(),
         dlam.data_ptr(), g.data_ptr(), ws_part.data_ptr(), ws_dc.data_ptr(),
@@ -650,21 +713,22 @@ def dense_radar_backward(w, src, dst, c, loc, lam, gre, gim, t_out: int):
 
 
 class DenseRadar(torch.autograd.Function):
-    """Kernel #8 forward, kernel #9 backward; the operator ``w`` gets no
-    gradient (a constant, as in the JAX VJP)."""
+    """Kernel #8 forward, kernel #9 backward, both over the operator's
+    band, found once a call and kept for the backward; the operator ``w``
+    gets no gradient (a constant, as in the JAX VJP)."""
 
     @staticmethod
     def forward(ctx, w, src, dst, c, loc, lam, t_out):
+        ctx.band = _band_for(w, src, t_out)
         ctx.save_for_backward(w, src, dst, c, loc, lam)
         ctx.t_out = t_out
-        return _dense_forward(w, src, dst, c, loc, lam, t_out)
+        return _dense_forward(w, ctx.band, src, dst, c, loc, lam, t_out)
 
     @staticmethod
     def backward(ctx, gre, gim):
-        grads = dense_radar_backward(
-            *ctx.saved_tensors, gre.contiguous(), gim.contiguous(),
-            ctx.t_out,
-        )
+        w, src, dst, c, loc, lam = ctx.saved_tensors
+        grads = _dense_backward(w, ctx.band, src, dst, c, loc, lam,
+                                gre.contiguous(), gim.contiguous(), ctx.t_out)
         return (None, *grads, None)
 
 
@@ -676,7 +740,9 @@ def dense_radar(w, src, dst, c, loc, lam, t_out: int):
     Same arguments and result as :func:`dense_radar_reference`. CPU
     tensors go to the plain versions; CUDA tensors launch kernel #8
     (counted in ``dense_radar.launches``) and, in the backward, kernel #9,
-    or raise."""
+    or raise. The kernels contract each block of rows over its band of
+    the operator (:func:`dense_band`): what they leave out is below f32
+    rounding of the positions."""
     _check_dense(w, src, dst, c, loc, lam, t_out)
     return DenseRadar.apply(w, src, dst, c, loc, lam, t_out)
 

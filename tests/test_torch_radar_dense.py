@@ -15,6 +15,11 @@ from skeleton_action_recognition_tpu.ops.pallas import radar as jax_radar
 from skeleton_action_recognition_tpu_torch.ops import radar, resample
 from skeleton_action_recognition_tpu_torch.ops import virtual_radar
 from test_torch_radar import LOC, T_IN, TOL, UP, _compare, _jax_loss, _port
+from test_torch_radar_dense_gpu import (
+    check_band,
+    dense_operator,
+    ragged_operator,
+)
 from test_torch_spectrogram import skeletons
 
 T_OUT = T_IN * UP  # 600
@@ -195,3 +200,115 @@ def test_virtual_radar_spectrogram_matches_jax(lam):
     assert got.shape == want.shape == (2, 256, 200 // 16 + 1)
     got, want = np.exp(got.numpy()), np.exp(want)
     np.testing.assert_allclose(got, want, atol=1e-3 * want.max())
+
+
+# --- the operator's band (dense_band), which kernels #8/#9 contract ---
+
+BAND_OPERATORS = {
+    "trainer": lambda: resample.pad_frames_operator(300, 250),
+    "small": lambda: resample.pad_frames_operator(T_IN, UP),
+    "cut": lambda: resample.pad_frames_operator(120, 4),
+    "ragged": ragged_operator,
+    "dense": dense_operator,
+}
+
+
+def _banded(w, band, t_out):
+    """``w``'s first ``t_out`` rows, zero outside each 64-row block's
+    band."""
+    cols = torch.arange(w.shape[1])
+    lo, hi = band.long().repeat_interleave(64, 0)[:t_out].unbind(1)
+    keep = (cols >= lo[:, None]) & (cols < hi[:, None])
+    return torch.where(keep, w[:t_out], 0.0)
+
+
+@pytest.mark.parametrize("name", sorted(BAND_OPERATORS))
+def test_dense_band_meets_its_criterion_on_every_row(name):
+    """Every row's mass left of its block's band, and right of it, is at
+    most 2^-31 of the row's L1 norm (f64 sums); a split's band is the
+    union of its blocks' bands."""
+    w = BAND_OPERATORS[name]()
+    check_band(w, *radar.dense_band(torch.from_numpy(w), w.shape[0]))
+
+
+def test_dense_band_at_the_trainers_operator():
+    """``pad_frames_operator(300, 250)``: a 64-row block's band is ~39 of
+    the 300 columns on average, a 4,096-row split's at most 56."""
+    w = torch.from_numpy(resample.pad_frames_operator(300, 250))
+    tiles, splits = radar.dense_band(w, w.shape[0])
+    tile_w = (tiles[:, 1] - tiles[:, 0]).double()
+    split_w = (splits[:, 1] - splits[:, 0]).double()
+    assert tile_w.mean() <= 40 and tile_w.max() <= 40
+    assert split_w.max() <= 56
+
+
+def test_dense_band_of_a_dense_operator_is_full_width():
+    w = torch.from_numpy(dense_operator())
+    for band in radar.dense_band(w, w.shape[0]):
+        assert (band[:, 0] == 0).all() and (band[:, 1] == w.shape[1]).all()
+
+
+def test_dense_band_of_zero_rows_is_empty():
+    """An all-zero block gets an empty band; a zero row beside others does
+    not widen theirs; rows past ``t_out`` are not looked at."""
+    w = torch.zeros(200, 50)
+    w[0:64, 10:14] = 0.25  # block 0: [10, 14)
+    w[3] = 0.0
+    w[130, 7] = 1.0  # block 2: [7, 8)
+    w[199, 0] = 1.0  # past t_out = 190
+    tiles, splits = radar.dense_band(w, 190)
+    assert tiles.tolist() == [[10, 14], [50, 50], [7, 8]]
+    assert splits.tolist() == [[7, 14]]
+    tiles, splits = radar.dense_band(torch.zeros(64, 50), 64)
+    assert (tiles[:, 0] == tiles[:, 1]).all()
+    assert splits.tolist() == [[50, 50]]
+
+
+@pytest.mark.parametrize("lam", [5e-4, 10.0])
+def test_banded_plain_version_matches_dense_at_the_trainers_operator(lam):
+    """Kernels #8/#9's plain versions on 2 clips at T = 300 upsampled 250x
+    with the operator zeroed outside each block's band, against the dense
+    operator: within the tolerances of the card's kernel-vs-plain checks
+    (``TOL``), so the band drops nothing that f32 rounding keeps."""
+    x = torch.from_numpy(skeletons(t=300))
+    w = torch.from_numpy(resample.pad_frames_operator(300, 250))
+    t_out = w.shape[0]
+    banded = _banded(w, radar.dense_band(w, t_out)[0], t_out)
+    assert (banded == 0).float().mean() > 0.8  # the band really cuts
+    src, dst = radar.gather_features(x, radar.RADAR_EDGES)
+    c = radar.bone_length_mean_sq(x, w)
+    loc, lam_t = torch.tensor(LOC), torch.tensor(lam)
+    g = torch.randn(2, 2, t_out, generator=torch.Generator().manual_seed(3))
+    fwd_tol, bwd_tol = TOL[lam]
+    got = radar.dense_radar_reference(banded, src, dst, c, loc, lam_t, t_out)
+    want = radar.dense_radar_reference(w, src, dst, c, loc, lam_t, t_out)
+    for p, q in zip(got, want):
+        assert (p - q).abs().max() <= fwd_tol * q.abs().max()
+    got = radar.dense_radar_backward_reference(banded, src, dst, c, loc, lam_t,
+                                               g[0], g[1], t_out)
+    want = radar.dense_radar_backward_reference(w, src, dst, c, loc, lam_t,
+                                                g[0], g[1], t_out)
+    for name, p, q in zip(("dsrc", "ddst", "dc", "dloc", "dlam"), got, want):
+        assert (p - q).abs().max() <= bwd_tol * q.abs().max(), name
+
+
+@pytest.mark.parametrize("lam", [5e-4, 10.0])
+def test_banded_op_matches_jax_where_the_band_cuts(lam):
+    """``radar_return_fused`` on the operator zeroed outside each block's
+    band, against the JAX Pallas op on the dense operator, at T_in = 120
+    upsampled 4x, where a block's band is 28-56 of the 120 columns: the
+    return and d/dx, d/dloc, d/dlambda, with the tolerances of the dense
+    comparison above."""
+    x = skeletons(t=120)
+    operator = resample.pad_frames_operator(120, 4)
+    t_out = operator.shape[0]
+    w = torch.from_numpy(operator)
+    tiles = radar.dense_band(w, t_out)[0]
+    assert (tiles[:, 1] - tiles[:, 0]).max() < 60
+    banded = _banded(w, tiles, t_out)
+    want = _jax_loss(lambda x, loc, lam: jax_radar.radar_return_fused(
+        x, jnp.asarray(operator), loc, lam, tile=128))(
+        jnp.asarray(x), jnp.asarray(LOC), jnp.asarray(np.float32(lam)))
+    got = _port(lambda x, loc, lam: radar.radar_return_fused(
+        x, banded, loc, lam, tile=128), x, LOC, lam)
+    _compare(got, want, lam)
