@@ -13,19 +13,23 @@ so the exit code is not 0.
 2. ``build``: compiles the ten ``csrc/*.cu`` sources (sgcn, radar,
    radar_dense, stft and tconv, forward and backward) for ``sm_90a`` from
    the checkout, one ``nvcc`` each, at once (seconds, and the compiler's
-   register and shared-memory reports).
+   register and shared-memory reports); ``sgcn_build``: the registers,
+   spills and shared memory of the six f32 spatial-conv kernels
+   (``csrc/sgcn_tile_f32.cuh``; none may spill).
 3. ``kernel``: the CUDA spatial graph-conv kernel against its plain PyTorch
    version at the six (T, C_in, C_out) shapes of the ten ST-GCN blocks, at
    NM=128 (64 clips x 2 bodies), in f32 and bf16: error, two launches bit
-   for bit, and CUDA-event times of both.
+   for bit, and CUDA-event times of both and of cuBLAS's 1x1 conv alone
+   (``F.linear``; ``library_ms``).
 4. ``kernel_bwd``: the backward kernel against its plain version at the
    six shapes, NM=256 (the 128-clip training batch), f32 and bf16: the
    relative error of dx, dW and db, two launches bit for bit, CUDA-event
-   times of both.
+   times of both and of cuBLAS's two products on a materialized dz alone
+   (``library_ms``).
    ``kernel_stats``: kernel #2 (the spatial conv with the BatchNorm
    statistics epilogue) against its plain version at the six shapes,
    NM=256, f32 and bf16: the errors of out and of the sums, two launches
-   bit for bit, CUDA-event times.
+   bit for bit, CUDA-event times (``F.linear`` alone as ``library_ms``).
    ``tconv_kernel``: kernels #4/#5 (the fused temporal chain, forward and
    backward) against their plain versions at the three stride-1 shapes,
    NM=256, f32 and bf16, with a positive shift: the error of every
@@ -53,9 +57,12 @@ so the exit code is not 0.
    Step time, clips/s, peak memory; the loss finite and falling; each
    step's launches exactly ``STEP_LAUNCHES``; the ``fused_tconv`` step
    beside the ``fused`` one (``fused_tconv_vs_fused``: in bf16 and in f32
-   it must be faster and use less memory). Then profiler traces of 3
-   bf16 steps, unfused, fused and fused_tconv: device time by kernel name
-   and the device's idle share.
+   it must be faster and use less memory). Then f32 once more with TF32
+   on in cuBLAS and cuDNN (``main_gnn``'s default ``--precision``; the
+   kernels stay f32): unfused, fused and ``fused_min128`` as ``dtype:
+   "f32_tf32"``, the same readings and checks. Between the bf16 and the
+   f32 steps, profiler traces of 3 bf16 steps, unfused, fused and
+   fused_tconv: device time by kernel name and the device's idle share.
 8. ``cli``: ``cli.main_gnn.main`` on a seeded synthetic TFRecord set
    (T=300, 60 classes, 48 training and 16 test clips, written with the
    port's writer), ``--fused-sgcn --fused-sgcn-min-channels 0``, default
@@ -111,9 +118,10 @@ so the exit code is not 0.
 Then the kernels line (``sgcn_fwd`` ``ms``/``plain_ms``: f32 time of the
 ten spatial convs of one 64-clip request; ``sgcn_bwd`` and
 ``sgcn_fwd_stats``: f32 time of the ten blocks' calls at NM=256; these
-three carry the bf16 kernel's numbers beside as ``bf16_ms``,
-``bf16_plain_ms``, ``bf16_bound_ms``, ``bf16_bound_by`` and
-``bf16_max_abs_err``;
+three carry cuBLAS's 1x1 conv (#1, #2) or its two products on a
+materialized dz (#3) alone as ``library_ms``, and the bf16 kernel's numbers
+beside as ``bf16_ms``, ``bf16_plain_ms``, ``bf16_library_ms``,
+``bf16_bound_ms``, ``bf16_bound_by`` and ``bf16_max_abs_err``;
 ``tconv_*``: f32 time of the eight stride-1 blocks' calls at NM=256, with
 cuDNN's conv alone as ``library_ms``, and the bf16 numbers beside as
 ``bf16_*`` (with ``bf16_library_ms``); ``radar_*``/``stft_*``: one call at
@@ -242,6 +250,9 @@ EVAL_OPTIONS = {
 # ST-GCN configurations, and the loss falls over 13
 TRAIN_STEPS, TRAIN_WARMUP = 10, 3
 PROFILE_STEPS = 3
+# the f32 configurations timed again with TF32 on (main_gnn's default
+# --precision): unfused, every block fused, and the CLI's default
+TF32_CONFIGS = ("unfused", "fused", "fused_min128")
 PROFILE_CONFIGS = ("unfused", "fused", "fused_tconv")
 CLI_CLIPS = {"train": 48, "val": 16}
 CLI_BATCH = 16
@@ -465,10 +476,65 @@ def phase_build():
         )
 
 
+def linear_ms(x, w, b):
+    """#1/#2's library yardstick: cuBLAS's 1x1 conv ``F.linear(x, W, b)``
+    alone, in ``x``'s dtype (no library call contracts the adjacency or
+    takes the statistics)."""
+    wd, bd = w.to(x.dtype), b.to(x.dtype)
+    return cuda_ms(lambda: F.linear(x, wd, bd))
+
+
+def dz_products_ms(x, w, a, gout):
+    """#3's library yardstick: cuBLAS's two products ``dz @ W`` and ``dz^T
+    @ x`` on a materialized ``dz = A g``, in ``x``'s dtype (the adjacency
+    contraction and db not timed)."""
+    dz = torch.einsum("kvw,ntwo->ntvko", a.to(x.dtype), gout)
+    dz = dz.reshape(-1, w.shape[0])
+    x2, wd = x.reshape(-1, x.shape[-1]), w.to(x.dtype)
+    ms = cuda_ms(lambda: (dz @ wd, dz.T @ x2))
+    del dz
+    return ms
+
+
+def spilling(ptxas):
+    """The lines of a ``ptxas_entries`` report that show a spill."""
+    return [line for lines in ptxas.values() for line in lines
+            if "spill" in line and not re.search(
+                r"\b0 bytes spill stores, 0 bytes spill loads", line)]
+
+
+def sgcn_build_report():
+    """Registers, spills and dynamic shared memory of the f32 spatial-conv
+    kernels (csrc/sgcn_tile_f32.cuh, namespace ``sgcn_f32``: the forward
+    and its stats instance, dx and dW in their wide and narrow instances),
+    from the build."""
+    fn = build.load_library("sgcn_bwd.cu").sgcn_f32_smem_bytes
+    fn.argtypes = [ctypes.c_void_p] * 3
+    fn.restype = None
+    sizes = [ctypes.c_int() for _ in range(3)]
+    fn(*(ctypes.byref(s) for s in sizes))
+    return {
+        "ptxas": {**ptxas_entries("sgcn_fwd.cu", "8sgcn_f32"),
+                  **ptxas_entries("sgcn_bwd.cu", "8sgcn_f32")},
+        "smem_bytes": dict(zip(("fwd_kernel", "dx_kernel", "dw_kernel"),
+                               (s.value for s in sizes))),
+    }
+
+
+def phase_sgcn_build():
+    """The f32 spatial-conv kernels' build report: six kernels (the
+    forward and its stats instance; dx and dW, each wide and narrow), none
+    spilling."""
+    report = sgcn_build_report()
+    emit("sgcn_build", **report)
+    check(len(report["ptxas"]) == 6 and not spilling(report["ptxas"]),
+          f"the f32 spatial kernels spill: {report['ptxas']}")
+
+
 def phase_kernel(device):
     a = torch.from_numpy(spatial_adjacency()).to(device)
     g = torch.Generator(device=device).manual_seed(SEED)
-    totals = {name: Totals() for name in DTYPES}
+    totals = {name: Totals(library=True) for name in DTYPES}
     for name, dtype in DTYPES.items():
         for (t, c_in, c_out), blocks in BLOCK_SHAPES:
             x = torch.randn(NM, t, 25, c_in, generator=g, device=device)
@@ -483,8 +549,12 @@ def phase_kernel(device):
             ref = sgcn.graph_conv_reference(x, w, b, a)
             abs_err = (out.float() - ref.float()).abs().max().item()
             rel_err = abs_err / ref.float().abs().max().item()
-            ms = cuda_ms(lambda: sgcn.fused_graph_conv(x, w, b, a))
-            plain_ms = cuda_ms(lambda: sgcn.graph_conv_reference(x, w, b, a))
+            times = {
+                "ms": cuda_ms(lambda: sgcn.fused_graph_conv(x, w, b, a)),
+                "plain_ms": cuda_ms(
+                    lambda: sgcn.graph_conv_reference(x, w, b, a)),
+                "library_ms": linear_ms(x, w, b),
+            }
             bound_ms, bound_by = bound(
                 sgcn_flops(NM * t, c_in, c_out, a), nbytes(x, w, b, a, out),
                 name)
@@ -492,8 +562,7 @@ def phase_kernel(device):
                 "kernel", dtype=name, nm=NM, t=t, c_in=c_in, c_out=c_out,
                 max_abs_err=abs_err, rel_err=rel_err,
                 rel_tol=KERNEL_REL_TOL[name], bit_identical=bit_identical,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by,
+                **times, bound_ms=bound_ms, bound_by=bound_by,
             )
             check(bit_identical, f"sgcn kernel repeats differ at {name} "
                   f"{(t, c_in, c_out)}")
@@ -502,8 +571,7 @@ def phase_kernel(device):
                 f"sgcn kernel disagrees at {name} {(t, c_in, c_out)}: "
                 f"rel err {rel_err}",
             )
-            totals[name].add({"ms": ms, "plain_ms": plain_ms}, abs_err,
-                             bound_ms, bound_by, blocks)
+            totals[name].add(times, abs_err, bound_ms, bound_by, blocks)
             del x, out, ref
     return dtype_entries(totals)
 
@@ -511,7 +579,7 @@ def phase_kernel(device):
 def phase_kernel_bwd(device):
     a = torch.from_numpy(spatial_adjacency()).to(device)
     g = torch.Generator(device=device).manual_seed(SEED + 1)
-    totals = {name: Totals() for name in DTYPES}
+    totals = {name: Totals(library=True) for name in DTYPES}
     for name, dtype in DTYPES.items():
         for (t, c_in, c_out), blocks in BLOCK_SHAPES:
             x = torch.randn(TRAIN_NM, t, 25, c_in, generator=g, device=device)
@@ -540,20 +608,21 @@ def phase_kernel_bwd(device):
                 sgcn_flops(TRAIN_NM * t, c_in, c_out, a, backward=True),
                 nbytes(x, w, a, gout, *got), name)
             del got, again, want
-            ms = cuda_ms(
-                lambda: sgcn.fused_graph_conv_backward(x, w, a, gout)
-            )
-            plain_ms = cuda_ms(
-                lambda: sgcn.graph_conv_backward_reference(x, w, a, gout)
-            )
+            times = {
+                "ms": cuda_ms(
+                    lambda: sgcn.fused_graph_conv_backward(x, w, a, gout)),
+                "plain_ms": cuda_ms(
+                    lambda: sgcn.graph_conv_backward_reference(x, w, a,
+                                                               gout)),
+                "library_ms": dz_products_ms(x, w, a, gout),
+            }
             emit(
                 "kernel_bwd", dtype=name, nm=TRAIN_NM, t=t, c_in=c_in,
                 c_out=c_out, max_abs_err=dict(zip(("dx", "dW", "db"),
                                                   abs_err)),
                 rel_err=dict(zip(("dx", "dW", "db"), rel_err)),
                 rel_tol=BWD_REL_TOL[name], bit_identical=bit_identical,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by,
+                **times, bound_ms=bound_ms, bound_by=bound_by,
             )
             check(bit_identical, f"sgcn_bwd repeats differ at {name} "
                   f"{(t, c_in, c_out)}")
@@ -562,8 +631,8 @@ def phase_kernel_bwd(device):
                 f"sgcn_bwd disagrees at {name} {(t, c_in, c_out)}: "
                 f"rel err {rel_err}",
             )
-            totals[name].add({"ms": ms, "plain_ms": plain_ms},
-                             max(abs_err), bound_ms, bound_by, blocks)
+            totals[name].add(times, max(abs_err), bound_ms, bound_by,
+                             blocks)
             del x, gout
             torch.cuda.empty_cache()
     return dtype_entries(totals)
@@ -594,7 +663,7 @@ def phase_kernel_stats(device):
     bit for bit, CUDA-event times."""
     a = torch.from_numpy(spatial_adjacency()).to(device)
     g = torch.Generator(device=device).manual_seed(SEED + 6)
-    totals = {name: Totals() for name in DTYPES}
+    totals = {name: Totals(library=True) for name in DTYPES}
     for name, dtype in DTYPES.items():
         for (t, c_in, c_out), blocks in BLOCK_SHAPES:
             x = torch.randn(TRAIN_NM, t, 25, c_in, generator=g,
@@ -614,17 +683,21 @@ def phase_kernel_stats(device):
                 sgcn_flops(TRAIN_NM * t, c_in, c_out, a)
                 + 3 * got[0].numel(), nbytes(x, w, b, a, *got), name)
             del again, want
-            ms = cuda_ms(lambda: sgcn.fused_graph_conv_stats(x, w, b, a))
-            plain_ms = cuda_ms(
-                lambda: sgcn.graph_conv_stats_reference(x, w, b, a))
+            times = {
+                "ms": cuda_ms(lambda: sgcn.fused_graph_conv_stats(x, w, b,
+                                                                  a)),
+                "plain_ms": cuda_ms(
+                    lambda: sgcn.graph_conv_stats_reference(x, w, b, a)),
+                "library_ms": linear_ms(x, w, b),
+            }
             emit(
                 "kernel_stats", dtype=name, nm=TRAIN_NM, t=t, c_in=c_in,
                 c_out=c_out, out_rel_err=out_rel,
                 out_rel_tol=KERNEL_REL_TOL[name], sum_err=sums,
                 sum_tol={"own": STATS_OWN_TOL,
                          "plain": STATS_PLAIN_TOL[name]},
-                bit_identical=bit_identical, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
+                bit_identical=bit_identical, **times, bound_ms=bound_ms,
+                bound_by=bound_by,
             )
             where = f"{name} {(t, c_in, c_out)}"
             check(bit_identical, f"sgcn_fwd_stats repeats differ at {where}")
@@ -634,8 +707,7 @@ def phase_kernel_stats(device):
                             else STATS_PLAIN_TOL[name])
                       for k, v in sums.items()),
                   f"sgcn_fwd_stats sums disagree at {where}: {sums}")
-            totals[name].add({"ms": ms, "plain_ms": plain_ms}, abs_err,
-                             bound_ms, bound_by, blocks)
+            totals[name].add(times, abs_err, bound_ms, bound_by, blocks)
             del x, got
             torch.cuda.empty_cache()
     return dtype_entries(totals)
@@ -707,10 +779,8 @@ def phase_tconv_kernel(device):
               for k in ("tconv_fwd", "tconv_bwd")}
     report = tconv_build_report()
     emit("tconv_build", **report)
-    spills = [line for lines in report["f32"]["ptxas"].values()
-              for line in lines if "spill" in line and not re.search(
-                  r"\b0 bytes spill stores, 0 bytes spill loads", line)]
-    check(len(report["f32"]["ptxas"]) == 3 and not spills,
+    check(len(report["f32"]["ptxas"]) == 3
+          and not spilling(report["f32"]["ptxas"]),
           f"the f32 temporal kernels spill: {report['f32']['ptxas']}")
     for name, dtype in DTYPES.items():
         for (t, c), blocks in TCONV_SHAPES:
@@ -944,12 +1014,13 @@ def read_launches(names=("sgcn_fwd", "sgcn_bwd")):
     return {name: COUNTERS[name].launches for name in names}
 
 
-def train_runs(device, name, batch):
+def train_runs(device, name, batch, configs=tuple(TRAIN_CONFIGS)):
     """``{config: step}`` closures training the full-width model in each
-    of ``TRAIN_CONFIGS``, from the same seed, each on its own fixed batch
-    of seeded noise. Each closure keeps, in ``.saved_mb``, the device
-    memory allocated when its last backward began (parameters, optimizer
-    state and the activations saved for the backward)."""
+    of ``configs`` (``TRAIN_CONFIGS``' names), from the same seed, each on
+    its own fixed batch of seeded noise. Each closure keeps, in
+    ``.saved_mb``, the device memory allocated when its last backward
+    began (parameters, optimizer state and the activations saved for the
+    backward)."""
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(
         rng.normal(size=(batch, 3, T, 25, 2)).astype(np.float32)
@@ -958,7 +1029,8 @@ def train_runs(device, name, batch):
         torch.from_numpy(rng.integers(0, 60, batch)), 60
     ).float().to(device)
     runs = {}
-    for config, options in TRAIN_CONFIGS.items():
+    for config in configs:
+        options = TRAIN_CONFIGS[config]
         model = Model(
             num_classes=60,
             dtype=torch.bfloat16 if name == "bf16" else None,
@@ -983,12 +1055,13 @@ def train_runs(device, name, batch):
     return runs
 
 
-def time_training(device, name, batch):
+def time_training(device, name, batch, configs=tuple(TRAIN_CONFIGS)):
     """The configurations' steps in turns, each step's launches counted
     and checked against ``STEP_LAUNCHES``; returns the runs, the launches
     of all timed steps and each configuration's median step ms and peak
-    memory MB."""
-    runs = train_runs(device, name, batch)
+    memory MB. ``name`` is "bf16", "f32" or "f32_tf32" (f32 as the
+    caller's TF32 switches leave it)."""
+    runs = train_runs(device, name, batch, configs)
     losses = {k: [run() for _ in range(TRAIN_WARMUP)]
               for k, run in runs.items()}
     times = {k: [] for k in runs}
@@ -1111,13 +1184,26 @@ def phase_train(device):
     torch.cuda.empty_cache()
     for batch in (TRAIN_BATCH, 64, 32):  # f32 at the largest that fits
         try:
-            _, f32_launches, summary = time_training(device, "f32", batch)
+            runs, f32_launches, summary = time_training(device, "f32", batch)
             compare_fused_tconv("f32", summary)
-            return {n: launches[n] + f32_launches[n] for n in launches}
+            break
         except torch.cuda.OutOfMemoryError:
             emit("train", dtype="f32", batch=batch, out_of_memory=True)
         torch.cuda.empty_cache()  # the failed run's tensors are freed now
-    raise RuntimeError("f32 training fits at no batch of 128, 64 or 32")
+    else:
+        raise RuntimeError("f32 training fits at no batch of 128, 64 or 32")
+    del runs
+    torch.cuda.empty_cache()
+    # f32 at the CLI's default --precision: TF32 on in cuBLAS and cuDNN (the
+    # kernels stay f32 on the CUDA cores)
+    main_gnn.set_precision("default")
+    try:
+        _, tf32_launches, _ = time_training(device, "f32_tf32", batch,
+                                            TF32_CONFIGS)
+    finally:
+        tf32_off()
+    return {n: launches[n] + f32_launches[n] + tf32_launches[n]
+            for n in launches}
 
 
 def host_cpu():
@@ -1714,6 +1800,7 @@ def main():
     phase_env()
     device = torch.device("cuda", 0)
     phase_build()
+    phase_sgcn_build()
     totals = phase_kernel(device)
     bwd_totals = phase_kernel_bwd(device)
     new_totals = {"sgcn_fwd_stats": phase_kernel_stats(device),

@@ -21,18 +21,13 @@
 // kernels keep z in shared memory: each frame's x is read once and its
 // output written once (4x fewer bytes than the unfused version).
 //
-// f32 (sgcn_fwd_kernel, on the CUDA cores, never TF32): one thread block
-// per (FRAMES frames, CO_TILE output channels); thread (f, o) owns frame f
-// and output channel o.
-//   1. Each block lists, per output joint w, the nonzero A[k, v, w] (a
-//      handful of the K * V entries of a column).
-//   2. Thread (f, o) keeps z[f, k, v, o] for all k, v in 75 registers and
-//      loops over C_in in chunks of 32. Each chunk of x (coalesced along
-//      C_in, read as float4) and of W (coalesced along C_in, stored
-//      transposed so a warp reads it along o) is staged in shared memory.
-//   3. z + b is written to shared memory over the chunks' place.
-//   4. Thread (f, o) sums, for each w, its column's listed A[k, v, w] times
-//      z[f, k, v, o], and writes out[f, w, o].
+// f32 (sgcn_f32::fwd_kernel in sgcn_tile_f32.cuh, on the CUDA cores, never
+// TF32): a register-blocked tile of 5 frames x 32 output channels, z = x W^T
+// + b as a (125 rows, padded to 128) x 96 (k, o) product with an 8 x 8
+// block of accumulators a thread and the depth C_in staged in chunks of 16
+// by cp.async (W^T transposed once a call by the wrapper); then z + b in
+// shared memory and out_f = A^T z_f per frame over each column's nonzero A
+// (see the header's notes).
 //
 // bf16 (mma_fwd_kernel): every product on the tensor cores through
 // mma_bf16.cuh's mma.sync.m16n8k16 with f32 sums (the TPU kernel's jnp.dot
@@ -74,162 +69,13 @@
 
 #include "channel_sums.cuh"
 #include "mma_bf16.cuh"
+#include "sgcn_tile_f32.cuh"
 
 namespace {
 
 constexpr int V = 25;        // NTU RGB+D joints
 constexpr int K = 3;         // spatial partitions
 constexpr int KV = K * V;
-
-// ---------------------------------------------------------------------------
-// f32, on the CUDA cores.
-
-constexpr int FRAMES = 2;    // frames per block
-constexpr int CO_TILE = 64;  // output channels per block
-constexpr int THREADS = FRAMES * CO_TILE;
-constexpr int C_CHUNK = 32;                   // input channels per chunk
-constexpr int W_STRIDE = K * CO_TILE + 1;     // padded: conflict-free stores
-constexpr int X_FLOATS = FRAMES * V * C_CHUNK;  // x chunk [f][v][c]
-constexpr int W_FLOATS = C_CHUNK * W_STRIDE;    // W chunk [c][k * CO_TILE + o]
-constexpr int Z_FLOATS = FRAMES * K * V * CO_TILE;  // z [f][k][v][o]
-constexpr int REGION = X_FLOATS + W_FLOATS > Z_FLOATS ? X_FLOATS + W_FLOATS
-                                                      : Z_FLOATS;
-constexpr int MAX_NNZ = KV;  // nonzeros a column of A can hold
-static_assert(K * V * V <= REGION, "A is staged in the chunk region");
-
-struct Smem {
-  float region[REGION];         // dense A, then the x and W chunks, then z
-  float bias[K * CO_TILE];      // b[k][o]
-  float a_val[V][MAX_NNZ];      // nonzero A[k, v, w] of column w
-  unsigned char a_kv[V][MAX_NNZ];  // their k * V + v
-  int a_nnz[V];
-  float red[2][THREADS];        // the stats epilogue's per-thread sums
-};
-
-// With STATS, partials[blockIdx.x][0 or 1][c_out] gets the block's sums of
-// out and out^2 over its frames.
-template <bool STATS>
-__global__ void __launch_bounds__(THREADS)
-    sgcn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ b, const float* __restrict__ a,
-                    float* __restrict__ out, float* __restrict__ partials,
-                    int frames, int c_in, int c_out) {
-  extern __shared__ float4 smem4[];
-  Smem& s = *reinterpret_cast<Smem*>(smem4);
-  float* xs = s.region;             // x chunk [f][v][C_CHUNK]
-  float* ws = s.region + X_FLOATS;  // W chunk [c][W_STRIDE]
-  float* zs = s.region;             // z [f][k][v][o], after the chunks
-
-  const int tid = threadIdx.x;
-  const int f = tid / CO_TILE, o = tid % CO_TILE;
-  const int f0 = blockIdx.x * FRAMES;
-  const int o0 = blockIdx.y * CO_TILE;
-  const int n_f = min(FRAMES, frames - f0);
-
-  for (int i = tid; i < K * CO_TILE; i += THREADS) {
-    const int oo = o0 + i % CO_TILE;
-    s.bias[i] = oo < c_out ? b[(i / CO_TILE) * c_out + oo] : 0.f;
-  }
-  for (int i = tid; i < K * V * V; i += THREADS) s.region[i] = a[i];
-  __syncthreads();
-  if (tid < V) {  // thread w lists column w
-    int n = 0;
-    for (int kv = 0; kv < KV; ++kv) {
-      const float av = s.region[kv * V + tid];
-      if (av != 0.f) {
-        s.a_val[tid][n] = av;
-        s.a_kv[tid][n] = static_cast<unsigned char>(kv);
-        ++n;
-      }
-    }
-    s.a_nnz[tid] = n;
-  }
-
-  float acc[K][V];
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[k][v] = 0.f;
-
-  // frames are contiguous rows of V * c_in values
-  const float* xg = x + size_t(f0) * V * c_in;
-  for (int c0 = 0; c0 < c_in; c0 += C_CHUNK) {
-    __syncthreads();  // dense A listed / previous chunk consumed
-    for (int i = tid; i < X_FLOATS; i += THREADS) {
-      const int row = i / C_CHUNK, c = c0 + i % C_CHUNK;
-      xs[i] = (row < n_f * V && c < c_in) ? xg[size_t(row) * c_in + c] : 0.f;
-    }
-    for (int i = tid; i < C_CHUNK * K * CO_TILE; i += THREADS) {
-      const int j = i / C_CHUNK, cl = i % C_CHUNK;  // j = k * CO_TILE + o
-      const int row_o = o0 + j % CO_TILE;
-      const int c = c0 + cl;
-      ws[cl * W_STRIDE + j] =
-          (row_o < c_out && c < c_in)
-              ? w[size_t((j / CO_TILE) * c_out + row_o) * c_in + c]
-              : 0.f;
-    }
-    __syncthreads();
-    // zero-filled past c_in, so a partial chunk runs to a multiple of 4
-    const int n_c = min(C_CHUNK, (c_in - c0 + 3) / 4 * 4);
-    for (int cl = 0; cl < n_c; cl += 4) {
-      float wk[4][K];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          wk[j][k] = ws[(cl + j) * W_STRIDE + k * CO_TILE + o];
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const float4 xv = *reinterpret_cast<const float4*>(
-            &xs[(f * V + v) * C_CHUNK + cl]);
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          acc[k][v] += xv.x * wk[0][k] + xv.y * wk[1][k] + xv.z * wk[2][k] +
-                       xv.w * wk[3][k];
-      }
-    }
-  }
-  __syncthreads();  // every thread is done with the chunks
-
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float bias = s.bias[k * CO_TILE + o];
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      zs[((f * K + k) * V + v) * CO_TILE + o] = acc[k][v] + bias;
-  }
-  __syncthreads();
-
-  float s_sum = 0.f, s_sq = 0.f;
-  if (f < n_f && o0 + o < c_out) {
-    const float* zf = zs + f * K * V * CO_TILE + o;
-    float* og = out + size_t(f0 + f) * V * c_out + o0 + o;
-    for (int wv = 0; wv < V; ++wv) {
-      float sum = 0.f;
-      for (int i = 0; i < s.a_nnz[wv]; ++i)
-        sum += s.a_val[wv][i] * zf[s.a_kv[wv][i] * CO_TILE];
-      og[size_t(wv) * c_out] = sum;
-      if (STATS) {
-        s_sum += sum;
-        s_sq += sum * sum;
-      }
-    }
-  }
-  if (!STATS) return;
-  s.red[0][tid] = s_sum;
-  s.red[1][tid] = s_sq;
-  __syncthreads();
-  if (f == 0 && o0 + o < c_out) {
-    float sum = 0.f, sq = 0.f;
-    for (int ff = 0; ff < FRAMES; ++ff) {
-      sum += s.red[0][ff * CO_TILE + o];
-      sq += s.red[1][ff * CO_TILE + o];
-    }
-    float* part = partials + size_t(blockIdx.x) * 2 * c_out + o0 + o;
-    part[0] = sum;
-    part[c_out] = sq;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16, on the tensor cores.
@@ -476,26 +322,26 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// With STATS, ws holds one partial of 2 * c_out floats per frame tile
-// (block row), and sums gets the 2 * c_out channel sums (out, then out^2).
+// With STATS, ws holds one partial of 2 * c_out floats per frame tile,
+// and sums gets the 2 * c_out channel sums (out, then out^2).
 template <bool STATS>
 int launch_f32(const void* x, const void* w, const void* b, const void* a,
                void* out, void* ws, void* sums, int frames, int c_in,
                int c_out, cudaStream_t stream) {
-  const int smem = int(sizeof(Smem));
-  cudaError_t err = allow_smem(sgcn_fwd_kernel<STATS>, smem);
+  namespace f = sgcn_f32;
+  const int smem = int(sizeof(f::FwdSmem));
+  cudaError_t err = allow_smem(f::fwd_kernel<STATS>, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((frames + FRAMES - 1) / FRAMES,
-                  (c_out + CO_TILE - 1) / CO_TILE);
-  sgcn_fwd_kernel<STATS><<<grid, THREADS, smem, stream>>>(
+  f::fwd_kernel<STATS><<<f::fwd_blocks(frames, c_out), f::FWD_THREADS, smem,
+                         stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<const float*>(a),
       static_cast<float*>(out), static_cast<float*>(ws), frames, c_in, c_out);
   err = cudaGetLastError();
   if (!STATS || err != cudaSuccess) return int(err);
-  return int(channel_sums::launch(static_cast<const float*>(ws), grid.x,
-                                  2 * c_out, static_cast<float*>(sums),
-                                  stream));
+  return int(channel_sums::launch(static_cast<const float*>(ws),
+                                  (frames + f::MF - 1) / f::MF, 2 * c_out,
+                                  static_cast<float*>(sums), stream));
 }
 
 template <bool STATS>
@@ -528,9 +374,9 @@ cudaStream_t as_stream(void* stream) {
 }  // namespace
 
 // x: (frames, V, c_in); b: (K * c_out,) f32; a: (K, V, V) f32; out:
-// (frames, V, c_out) like x; w: (K * c_out, c_in), f32 for the f32 entries
-// and bf16 for the bf16 ones. All contiguous. Returns the cudaError_t of
-// the launch (0 on success).
+// (frames, V, c_out) like x; w: the f32 entries take the weight transposed,
+// (c_in, K * c_out) f32, the bf16 ones as it is, (K * c_out, c_in) bf16.
+// All contiguous. Returns the cudaError_t of the launch (0 on success).
 extern "C" int sgcn_fwd_f32(const void* x, const void* w, const void* b,
                             const void* a, void* out, int frames, int c_in,
                             int c_out, void* stream) {
@@ -545,8 +391,8 @@ extern "C" int sgcn_fwd_bf16(const void* x, const void* w, const void* b,
                             c_out, as_stream(stream));
 }
 
-// As sgcn_fwd_*, plus ws: one partial of 2 * c_out f32 per frame tile (2
-// frames in f32, 5 in bf16) of workspace, and sums: (2 * c_out,) f32, the
+// As sgcn_fwd_*, plus ws: one partial of 2 * c_out f32 per frame tile (5
+// frames) of workspace, and sums: (2 * c_out,) f32, the
 // sums of out and of out^2 over all frames and joints per output channel.
 extern "C" int sgcn_fwd_stats_f32(const void* x, const void* w,
                                   const void* b, const void* a, void* out,

@@ -45,16 +45,17 @@ from skeleton_action_recognition_tpu_torch.ops.build import (
 K_PARTS = 3
 NUM_JOINTS = 25
 # csrc/sgcn_fwd.cu's frames per block row, by dtype (f32 on the CUDA
-# cores, bf16 on the tensor cores): the stats workspace holds one partial
-# per block row
-_FWD_FRAMES = {torch.float32: 2, torch.bfloat16: 5}
+# cores, bf16 on the tensor cores; both tiles are 125 rows): the stats
+# workspace holds one partial per block row
+_FWD_FRAMES = {torch.float32: 5, torch.bfloat16: 5}
 # csrc/sgcn_bwd.cu's dW tiling, by dtype: frames per chunk, output and input
-# channels per block, and the blocks to aim for (f32: four per SM of the
-# H100's 132; bf16: one wave of two per SM, the most its 112 KB of shared
-# memory a block lets an SM hold). The wrapper sizes the workspace from
-# them. The split count depends on the shapes alone, which keeps the sums'
-# order, and so the result, the same from launch to launch.
-_DW_TILES = {torch.float32: (2, 32, 64, 4 * 132),
+# channels per block, and the blocks to aim for (one wave of two blocks an
+# SM of the H100's 132: the most that the f32 kernel's 109 KB and the bf16
+# kernel's 112 KB of shared memory a block let an SM hold). The wrapper
+# sizes the workspace from them. The split count depends on the shapes
+# alone, which keeps the sums' order, and so the result, the same from
+# launch to launch.
+_DW_TILES = {torch.float32: (2, 64, 64, 2 * 132),
              torch.bfloat16: (5, 32, 128, 2 * 132)}
 
 
@@ -151,7 +152,7 @@ def _forward(x, weight, bias, a):
     out = torch.empty((nm, t, v, c_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    w = kernel_weight(weight, x.dtype)
+    w = forward_weight(weight, x.dtype)
     launch(
         _kernels("sgcn_fwd.cu", 5, 3)[x.dtype], "sgcn_fwd", x.device,
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), a.data_ptr(),
@@ -175,7 +176,7 @@ def _forward_stats(x, weight, bias, a):
         return out, sums[:c_out], sums[c_out:]
     ws = torch.empty(forward_tiles(nm * t, x.dtype) * 2 * c_out,
                      dtype=torch.float32, device=x.device)
-    w = kernel_weight(weight, x.dtype)
+    w = forward_weight(weight, x.dtype)
     launch(
         _kernels("sgcn_fwd.cu", 7, 3, "sgcn_fwd_stats")[x.dtype],
         "sgcn_fwd_stats", x.device,
@@ -205,10 +206,20 @@ def backward_splits(frames: int, c_in: int, c_out: int,
 
 
 def kernel_weight(weight, dtype):
-    """The weight as the kernels of ``dtype`` take it: the f32 kernels read
-    it as it is; the bf16 ones read it cast to bf16 once per call (the
-    rounding the TPU kernel does on load)."""
+    """The weight as the kernels of ``dtype`` take it (the f32 forward
+    takes :func:`forward_weight`'s): the f32 backward reads it as it is;
+    the bf16 kernels read it cast to bf16 once per call (the rounding the
+    TPU kernel does on load)."""
     return weight.to(dtype).contiguous()
+
+
+def forward_weight(weight, dtype):
+    """The weight as the forward kernels of ``dtype`` take it: the f32 ones
+    transposed, ``(C_in, K * C_out)``, once a call (their tile reads W^T's
+    rows as it stages them); the bf16 ones as :func:`kernel_weight`."""
+    if dtype == torch.float32:
+        return weight.t().contiguous()
+    return kernel_weight(weight, dtype)
 
 
 def fused_graph_conv_backward(x, weight, a, g):

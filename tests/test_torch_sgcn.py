@@ -132,3 +132,35 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text("// two")
     assert build.library_path("k.cu") != first
     assert first.parent == build.BUILD_DIR and first.suffix == ".so"
+
+
+# (frames, C_in, C_out): the six block shapes at NM=256 (the 128-clip
+# training batch) and the GPU tests' tile edges (frames not a multiple of 5
+# or 2, one frame, C_in = 3, 20 and 136, C_out = 33, 40 and 72)
+PLAN_SHAPES = [(76800, 3, 64), (76800, 64, 64), (76800, 64, 128),
+               (38400, 128, 128), (38400, 128, 256), (19200, 256, 256),
+               (21, 3, 64), (1, 16, 32), (21, 20, 40), (20, 136, 72),
+               (5, 16, 33), (18, 256, 256)]
+
+
+@pytest.mark.parametrize("frames,c_in,c_out", PLAN_SHAPES)
+def test_f32_tiles_cover_every_frame_by_the_shapes_alone(frames, c_in,
+                                                         c_out):
+    """The f32 kernels' plans: the stats workspace has one row per 5-frame
+    tile (``forward_tiles``), and the dW kernel's splits (``backward_splits``)
+    cut the 2-frame chunks into contiguous, non-empty ranges that cover
+    every frame once, as the kernel computes them (``chunks * s //
+    splits``). Both are functions of the shapes alone, so the sums' order,
+    and with it the result, is the same from launch to launch."""
+    tiles = sgcn.forward_tiles(frames, torch.float32)
+    assert (tiles - 1) * 5 < frames <= tiles * 5
+    splits = sgcn.backward_splits(frames, c_in, c_out, torch.float32)
+    assert splits == sgcn.backward_splits(frames, c_in, c_out,
+                                          torch.float32)
+    chunks = -(-frames // 2)
+    bounds = [chunks * s // splits for s in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == chunks
+    assert all(lo < hi for lo, hi in zip(bounds, bounds[1:]))
+    covered = [f for lo, hi in zip(bounds, bounds[1:])
+               for f in range(2 * lo, min(2 * hi, frames))]
+    assert covered == list(range(frames))

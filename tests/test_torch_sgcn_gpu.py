@@ -259,8 +259,19 @@ def test_stats_function_launches_its_kernels_only(cuda, monkeypatch):
 # C_in = 20 (unaligned) and C_out = 40 (a partial tile); C_in = 24 (aligned,
 # depth zero-padded to 32); C_in = 136 (two input-channel tiles, a partial
 # chunk) and C_out = 72; an odd C_out; the widest block at 18 frames.
+# The edges of the f32 tiles (5 frames x 32 output channels, input in
+# chunks of 16, in the forward; 5 frames x 64 input channels, output in
+# chunks of 16, in dx; 64 x 64 channels over chunks of 2 frames in dW; a
+# narrow path at C_in <= 4): C_in = 4 (the narrow path, 16-byte rows) and
+# 5 (just past it, unaligned); C_in = 40 and C_out = 100 (partial chunks and
+# tiles of every kernel) over 13 frames (a partial tile, a split ending on a
+# partial chunk); and 1,600 frames of C_in = 300, C_out = 150 (more tiles
+# than the persistent forward and dx run blocks, whose walk then wraps
+# across the 5 channel tiles).
 EDGE_SHAPES = [(3, 7, 3, 64), (1, 1, 16, 32), (3, 7, 20, 40), (2, 3, 24, 40),
-               (3, 4, 136, 72), (1, 5, 16, 33), (2, 9, 256, 256)]
+               (3, 4, 136, 72), (1, 5, 16, 33), (2, 9, 256, 256),
+               (4, 3, 4, 24), (2, 6, 5, 16), (1, 13, 40, 100),
+               (8, 200, 300, 150)]
 
 
 @pytest.mark.gpu
@@ -297,3 +308,28 @@ def test_kernels_at_the_edges_of_their_tiles(cuda, nm, t, c_in, c_out,
     _assert_close(got["backward"],
                   sgcn.graph_conv_backward_reference(x, w, a, g),
                   BWD_REL_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_f32_kernels_ignore_the_tf32_switch(cuda):
+    """The f32 kernels compute on the CUDA cores whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says (``main_gnn``'s default
+    ``--precision`` turns it on): forward, stats and backward give
+    bit-identical results with it on and off."""
+    x, w, b, a = _inputs(30, 64, 128, torch.float32, cuda, nm=4)
+    g = torch.randn(4, 30, 25, 128, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(5))
+    runs = {}
+    try:
+        for allow in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            torch.backends.cudnn.allow_tf32 = allow
+            runs[allow] = ((sgcn.fused_graph_conv(x, w, b, a),)
+                           + sgcn.fused_graph_conv_stats(x, w, b, a)
+                           + sgcn.fused_graph_conv_backward(x, w, a, g))
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    for p, q in zip(runs[True], runs[False]):
+        assert torch.equal(p, q)

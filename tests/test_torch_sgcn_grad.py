@@ -183,11 +183,11 @@ def test_backward_splits_bound_the_workspace(dtype):
     """At NM=256 (128 clips) the dW workspace of every block shape stays
     under 16 MB, each split holds at least one chunk of frames (2 in f32,
     5 in bf16), and the dW grid fills more than half of one wave on the
-    H100's 132 SMs (4 blocks an SM in f32, 2 in bf16) without starting a
-    second."""
+    H100's 132 SMs (2 blocks an SM: f32 tiles of 64 output x 64 input
+    channels, bf16 of 32 x 128) without starting a second."""
     chunk = {torch.float32: 2, torch.bfloat16: 5}[dtype]
-    tiles = {torch.float32: (32, 64), torch.bfloat16: (32, 128)}[dtype]
-    wave = {torch.float32: 4 * 132, torch.bfloat16: 2 * 132}[dtype]
+    tiles = {torch.float32: (64, 64), torch.bfloat16: (32, 128)}[dtype]
+    wave = 2 * 132
     for t, c_in, c_out in [(300, 3, 64), (300, 64, 64), (300, 64, 128),
                            (150, 128, 128), (150, 128, 256),
                            (75, 256, 256)]:
@@ -201,14 +201,14 @@ def test_backward_splits_bound_the_workspace(dtype):
 
 
 @pytest.mark.parametrize("frames,dtype,tiles", [
-    (1, torch.float32, 1), (7, torch.float32, 4), (76800, torch.float32,
-                                                   38400),
+    (1, torch.float32, 1), (5, torch.float32, 1), (7, torch.float32, 2),
+    (76800, torch.float32, 15360),
     (1, torch.bfloat16, 1), (5, torch.bfloat16, 1), (7, torch.bfloat16, 2),
     (76800, torch.bfloat16, 15360),
 ])
 def test_forward_tiles_size_the_stats_workspace(frames, dtype, tiles):
-    """One partial row per block row of the stats kernel: 2 frames a row in
-    f32, 5 (125 rows of the tensor-core tile) in bf16."""
+    """One partial row per block row of the stats kernel: 5 frames (a
+    tile's 125 rows) a row in f32 and in bf16."""
     assert sgcn.forward_tiles(frames, dtype) == tiles
 
 
@@ -221,3 +221,15 @@ def test_kernel_weight_is_cast_once_to_the_kernels_dtype():
     got = sgcn.kernel_weight(w.T.contiguous().T, torch.bfloat16)
     assert got.dtype == torch.bfloat16 and got.is_contiguous()
     assert torch.equal(got, w.to(torch.bfloat16))
+
+
+def test_forward_weight_is_transposed_for_the_f32_kernels():
+    """The f32 forward kernels read W^T, ``(C_in, K * C_out)``, contiguous
+    and equal to the weight's transpose; the bf16 ones the weight as the
+    backward reads it."""
+    w = torch.randn(48, 16)
+    got = sgcn.forward_weight(w, torch.float32)
+    assert got.shape == (16, 48) and got.is_contiguous()
+    assert torch.equal(got, w.T)
+    assert torch.equal(sgcn.forward_weight(w, torch.bfloat16),
+                       sgcn.kernel_weight(w, torch.bfloat16))
