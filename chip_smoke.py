@@ -96,9 +96,16 @@ so the exit code is not 0.
    profiler pass over a forward and backward (``glue_profile``: the
    device time of #8/#9 and of the plain-torch glue around them, and the
    glue's largest kernels and operators).
-10. ``stft_kernel``: the STFT log-magnitude kernels (#10, #11) against their
-    plain versions on that radar return (16 x 75,000 samples, n_fft 256,
-    hop 16: 4,688 frames), the same readings.
+10. ``stft_kernel``: the STFT log-magnitude kernels (#10, #11), FFTs in
+    the block, at that shape (16 x 75,000 samples, n_fft 256, hop 16:
+    4,688 frames) on seeded normal signals, against their plain versions
+    evaluated in float64 (the f32 plain versions' distance beside, as
+    ``*_vs_f32_plain``), and #10 on the radar return as magnitudes: the
+    errors, two launches of each bit for bit, #11's peak memory (no
+    workspace), CUDA-event times of kernel, plain version and
+    ``torch.stft`` (cuFFT) forward and its backward alone (``library_ms``),
+    and the bounds of the FFT route with the PR 3 design's DFT products'
+    beside (``dft_bound_ms``).
 11. ``spec_train``: training steps of the full-width spectrogram model
     (ResNet-18, 64 filters, 256 x 256 images, 60 classes) at B=16, f32,
     TF32 off, through the kernels and through the plain routes
@@ -126,8 +133,10 @@ beside as ``bf16_ms``, ``bf16_plain_ms``, ``bf16_library_ms``,
 cuDNN's conv alone as ``library_ms``, and the bf16 numbers beside as
 ``bf16_*`` (with ``bf16_library_ms``); ``radar_*``/``stft_*``: one call at
 16 clips, lambda = 5e-4, with the operator products alone as the dense
-radar kernels' ``library_ms``; ``bound_ms``: the least time of the same
-work at the card's published f32 (bf16) peak and memory rate; ``launches``: the
+radar kernels' ``library_ms`` and ``torch.stft`` and its backward as the
+STFT kernels' (their ``dft_bound_ms`` beside); ``bound_ms``: the least
+time of the same work at the card's published f32 (bf16) peak and memory
+rate; ``launches``: the
 counts of the ``cli`` run for ``sgcn_fwd``/``sgcn_bwd``, of the
 ``spec_cli`` run for the spline radar and STFT kernels, of
 ``radar_dense_path`` for the dense radar kernels and of the ``train``
@@ -266,12 +275,14 @@ LAMBDAS = (5e-4, 10.0)  # the model's wavelength, and a damped one
 # cotangents (the JAX package's Pallas-vs-XLA tolerances). At lambda = 10
 # both agree to f32 rounding of sums over up to 57.6 M terms: 1e-4.
 RADAR_TOL = {5e-4: (2e-3, 1e-2), 10.0: (1e-4, 1e-4)}
-# STFT kernel vs plain on normal signals: log|S| to 5e-4 absolute (f32
-# sums of 256 terms, the error growing as 1/|S| at the smallest bins,
-# tests/test_torch_stft.py), its (re, im) cotangent to 2e-3 of the largest
-# (the 1/|S| of the smallest of 16 x 4,688 x 256 bins: 9.0e-4 measured).
-# On the radar return, |S| + eps to 1e-5 of its largest (f32 sums of 256
-# terms in other orders: 7.3e-7 measured).
+# STFT kernels vs their plain versions evaluated in float64, on normal
+# signals: log|S| to 5e-4 absolute (the error grows as 1/|S| at the
+# smallest bins; the f32 plain version is itself 1.1e-3 from float64 at
+# this shape, an f32 FFT 2.2e-4: scripts/torch_stft_oracle.py on the CPU),
+# the (re, im) cotangent to 2e-3 of the largest (the 1/|S| of the smallest
+# of 16 x 4,688 x 256 bins). On the radar return, |S| + eps to 1e-5 of its
+# largest (f32 sums in other orders: 7.3e-7 measured against the f32 plain
+# version); torch.stft's magnitudes likewise.
 STFT_ATOL, STFT_GRAD_TOL, STFT_MAG_TOL = 5e-4, 2e-3, 1e-5
 SPEC_LR = 1e-4  # the JAX bench's Adam rate
 # kernel #2's sums, |error| / sum |terms| per channel: against the f64 sums
@@ -1598,11 +1609,48 @@ def glue_profile(run, top=10):
     }
 
 
+def stft_library(re, im, hop, window):
+    """``torch.stft`` (cuFFT) of ``re + i im`` as the kernels take it
+    (centered, reflect-padded, two-sided), and the backward of that one
+    call alone: ``(forward, backward)`` callables, the library yardsticks
+    of #10 and #11."""
+    n_fft = window.shape[0]
+    z = torch.complex(re, im).requires_grad_()
+
+    def forward():
+        return torch.stft(z, n_fft, hop_length=hop, window=window,
+                          center=True, pad_mode="reflect", onesided=False,
+                          return_complex=True)
+
+    spec = forward()
+    gen = torch.Generator(device=re.device).manual_seed(SEED + 6)
+    g = torch.complex(*(torch.randn(spec.shape, generator=gen,
+                                    device=re.device) for _ in range(2)))
+    return forward, lambda: torch.autograd.grad(spec, z, g,
+                                                retain_graph=True)
+
+
+def stft_ops(n, frames, n_fft, backward=False):
+    """Operations of the FFT route over ``n * frames`` frames: 5 N log2 N
+    a complex FFT; the forward's window, magnitude, square root and log, 8
+    a bin; the backward's two FFTs, the recomputed forward's 8 and the
+    cotangent chain, window and overlap-add's 12 a bin."""
+    fft = 5 * n_fft * int(np.log2(n_fft))
+    per_frame = 2 * fft + 20 * n_fft if backward else fft + 8 * n_fft
+    return n * frames * per_frame
+
+
 def phase_stft_kernel(device, radar_re, radar_im):
-    """Kernels #10 and #11 against their plain versions at the trainer's
-    shape, on seeded normal signals (as the JAX package's STFT tests); and
-    kernel #10 on the radar return, compared as magnitudes."""
+    """Kernels #10 and #11 at the trainer's shape, on seeded normal signals
+    (as the JAX package's STFT tests), against their plain versions
+    evaluated in float64 (inputs, g and ``stft_basis(256, float64)``
+    promoted; the result compared in f32), with the distance to the f32
+    plain versions beside; kernel #10 on the radar return, compared as
+    magnitudes; both kernels bit for bit across two launches; #11's peak
+    memory; ``torch.stft`` and its backward as the library yardsticks."""
     cos, sin = (torch.from_numpy(b).to(device) for b in stft.stft_basis(256))
+    cos64, sin64 = (torch.from_numpy(b).to(device)
+                    for b in stft.stft_basis(256, dtype=np.float64))
     hop, n, t = 16, radar_re.shape[0], radar_re.shape[1]
     frames = t // hop + 1
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -1610,29 +1658,61 @@ def phase_stft_kernel(device, radar_re, radar_im):
               for _ in range(2))
     g = torch.randn(n, 256, frames, generator=gen, device=device)
     out = stft_logmag.stft_logmag(re, im, hop, cos, sin)
+    out_again = stft_logmag.stft_logmag(re, im, hop, cos, sin)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     got = stft_logmag.stft_logmag_backward(re, im, hop, cos, sin, g)
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - base
     again = stft_logmag.stft_logmag_backward(re, im, hop, cos, sin, g)
     torch.cuda.synchronize()
-    bit_identical = all(torch.equal(p, q) for p, q in zip(got, again))
-    want = stft_logmag.stft_logmag_reference(re, im, hop, cos, sin)
-    want_bwd = stft_logmag.stft_logmag_backward_reference(re, im, hop, cos,
-                                                          sin, g)
+    bit_identical = {
+        "stft_fwd": torch.equal(out, out_again),
+        "stft_bwd": all(torch.equal(p, q) for p, q in zip(got, again))}
+    want = stft_logmag.stft_logmag_reference(
+        re.double(), im.double(), hop, cos64, sin64).float()
+    want_bwd = [d.float() for d in stft_logmag.stft_logmag_backward_reference(
+        re.double(), im.double(), hop, cos64, sin64, g.double())]
     abs_err = max_abs_err([out], [want])
     bwd_err = dict(zip(("dre", "dim"),
                        (rel_err(p, q) for p, q in zip(got, want_bwd))))
+    f32_want = stft_logmag.stft_logmag_reference(re, im, hop, cos, sin)
+    f32_want_bwd = stft_logmag.stft_logmag_backward_reference(
+        re, im, hop, cos, sin, g)
+    vs_f32_plain = {
+        "stft_fwd_max_abs_err_vs_f32_plain": max_abs_err([out], [f32_want]),
+        "stft_bwd_rel_err_vs_f32_plain": dict(zip(
+            ("dre", "dim"),
+            (rel_err(p, q) for p, q in zip(got, f32_want_bwd)))),
+        "f32_plain_max_abs_err_vs_f64": max_abs_err([f32_want], [want]),
+    }
+    del f32_want, f32_want_bwd
     # the radar return's spectrum spans many decades: log|S| of its
     # smallest bins is ill-conditioned in f32 for any two summation orders,
     # |S| + eps = exp(out) is not
-    # 4 real products a (frame, bin, tap) for each of re and im; the
-    # backward recomputes the spectrum and takes the products' transposes
+    radar_out = stft_logmag.stft_logmag(radar_re, radar_im, hop, cos, sin)
+    radar_mag_err = rel_err(radar_out.exp(), stft_logmag.stft_logmag_reference(
+        radar_re.double(), radar_im.double(), hop, cos64, sin64).float().exp())
+    lib_fwd, lib_bwd = stft_library(re, im, hop, cos[0])
+    # torch.stft's bins are in FFT order: rolled by 128 they are the
+    # kernel's rows
+    lib_mag = torch.roll(lib_fwd().detach().abs(), 128, 1) + 1e-6
+    lib_mag_err = rel_err(out.exp(), lib_mag)
+    del radar_out, lib_mag
+    # the FFT route: inputs read once, outputs written once, with the
+    # window and the twiddle table; the PR 3 design's DFT products (4 real
+    # products a (frame, bin, tap) for each of re and im; the backward
+    # recomputes the spectrum and takes the products' transposes) beside
+    table = nbytes(cos[0]) * 3
+    fwd_bound = bound(stft_ops(n, frames, 256),
+                      nbytes(re, im, out) + table, "f32")
+    bwd_bound = bound(stft_ops(n, frames, 256, backward=True),
+                      nbytes(re, im, g, *got) + table, "f32")
     products = n * frames * 256 * 256
-    fwd_bound = bound(8 * products, nbytes(re, im, cos, sin, out), "f32")
-    bwd_bound = bound(16 * products, nbytes(re, im, cos, sin, g, *got),
-                      "f32")
-    radar_mag_err = rel_err(
-        stft_logmag.stft_logmag(radar_re, radar_im, hop, cos, sin).exp(),
-        stft_logmag.stft_logmag_reference(radar_re, radar_im, hop, cos,
-                                          sin).exp())
+    dft_bounds = (bound(8 * products, nbytes(re, im, cos, sin, out), "f32"),
+                  bound(16 * products, nbytes(re, im, cos, sin, g, *got),
+                        "f32"))
     entries = {
         "stft_fwd": {
             "ms": cuda_ms(lambda: stft_logmag.stft_logmag(
@@ -1641,7 +1721,8 @@ def phase_stft_kernel(device, radar_re, radar_im):
                 re, im, hop, cos, sin)),
             "max_abs_err": abs_err,
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-            "library_ms": None,
+            "dft_bound_ms": dft_bounds[0][0],
+            "library_ms": cuda_ms(lib_fwd),
         },
         "stft_bwd": {
             "ms": cuda_ms(lambda: stft_logmag.stft_logmag_backward(
@@ -1651,23 +1732,41 @@ def phase_stft_kernel(device, radar_re, radar_im):
                     re, im, hop, cos, sin, g)),
             "max_abs_err": max_abs_err(got, want_bwd),
             "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-            "library_ms": None,
+            "dft_bound_ms": dft_bounds[1][0],
+            "library_ms": cuda_ms(lib_bwd),
         },
     }
+    # the PR 3 design's workspaces: gbuf (N, frames, 2F), dfr (N, frames,
+    # 2 n_fft)
+    dft_workspace = 4 * n * frames * (2 * 256 + 2 * 256)
     emit(
-        "stft_kernel", n=n, t=t, frames=frames, max_abs_err=abs_err,
-        atol=STFT_ATOL, bwd_rel_err=bwd_err, bwd_rel_tol=STFT_GRAD_TOL,
-        bit_identical=bit_identical, radar_magnitude_rel_err=radar_mag_err,
-        radar_magnitude_rel_tol=STFT_MAG_TOL, **{
+        "stft_kernel", n=n, t=t, frames=frames, reference="float64",
+        max_abs_err=abs_err, atol=STFT_ATOL, bwd_rel_err=bwd_err,
+        bwd_rel_tol=STFT_GRAD_TOL, bit_identical=bit_identical,
+        radar_magnitude_rel_err=radar_mag_err,
+        radar_magnitude_rel_tol=STFT_MAG_TOL,
+        library_magnitude_rel_err=lib_mag_err,
+        stft_bwd_peak_mb=bwd_peak / 2**20,
+        stft_bwd_dft_workspace_mb=dft_workspace / 2**20,
+        **vs_f32_plain, **{
             f"{k}_{m}": v[m] for k, v in entries.items() for m in v},
     )
-    check(bit_identical, "stft_bwd repeats differ")
+    check(all(bit_identical.values()), f"repeats differ: {bit_identical}")
     check(abs_err <= STFT_ATOL, f"stft_fwd disagrees by {abs_err}")
     check(max(bwd_err.values()) <= STFT_GRAD_TOL,
           f"stft_bwd disagrees: {bwd_err}")
     check(radar_mag_err <= STFT_MAG_TOL,
           f"stft_fwd magnitudes of the radar return differ by "
           f"{radar_mag_err}")
+    check(lib_mag_err <= STFT_MAG_TOL,
+          f"stft_fwd magnitudes differ from torch.stft's by {lib_mag_err}")
+    # no workspace: the outputs, the edge buffer and the allocator's
+    # rounding
+    check(bwd_peak <= 2 * nbytes(*got),
+          f"stft_bwd allocated {bwd_peak} bytes for {nbytes(*got)} of "
+          "output")
+    del got, again, want, want_bwd, lib_fwd, lib_bwd
+    torch.cuda.empty_cache()
     return entries
 
 

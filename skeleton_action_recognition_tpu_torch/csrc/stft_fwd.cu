@@ -2,80 +2,68 @@
 //
 // Replaces the TPU kernel skeleton_action_recognition_tpu/ops/pallas/stft.py::
 // _fwd_kernel (called from _fwd_impl): the complex STFT of a signal given
-// as two real channels (re, im), its magnitude and log:
+// as two real channels (re, im), its magnitude and log,
 //
-//     out[n, f, i] = log(sqrt(Re[i, f]^2 + Im[i, f]^2) + eps)
+//     out[n, row(k), i] = log(|sum_m x[i hop + m] w[m] e^{-2 pi i k m / N}| + eps)
 //
-// for frames i of the padded signal (the wrapper reflect-pads it when the
-// STFT is centered) and bins f whose basis columns already carry the
-// fftshift roll. Output in the (N, F, frames) layout of the XLA path.
-//
-// What bounds it on the H100: f32 FMAs. At the production shape (N = 16,
-// T = 75,000, n_fft = 256, hop = 16, F = 256: 4,688 frames) the product is
-// 16 x 4,688 x 256 x 1,024 FMAs = 39.3 GFLOP, against 4.8 MB of signal in
-// and 77 MB of spectrogram out; at the f32 CUDA-core peak (67 TFLOP/s at
-// 700 W) that is ~0.6 ms, at the memory peak ~0.03 ms. The TPU kernel
-// built frames by polyphase reshapes for the MXU; here the tile in
-// stft_tile.cuh reads frames straight from the block's staged signal
-// span, and the epilogue transposes the block's (frames x bins) tile
-// through shared memory so that the (N, F, frames) output is written with
-// consecutive threads on consecutive frames.
+// for frames i of the signal reflect-padded by `pad` (N / 2 when the STFT
+// is centered, else 0), bins k < F, and row(k) = (k + F / 2) mod F under
+// fftshift, else k: the (N, F, frames) layout of the XLA path. The TPU
+// kernel contracted polyphase frames with the windowed bases on its matrix
+// unit; here each frame is an FFT in the block (stft_fft.cuh, fwd_kernel),
+// which bytes, not operations, bound on the H100.
 
 #include <cuda_runtime.h>
 
-#include "stft_tile.cuh"
+#include "stft_fft.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(stft::kThreads)
-stft_fwd_kernel(const float* __restrict__ sig_re,
-                const float* __restrict__ sig_im,
-                const float* __restrict__ cs, const float* __restrict__ ss,
-                float* __restrict__ out, int tp, int n_fft, int hop, int f,
-                int frames, float eps) {
-  extern __shared__ float smem[];
-  const int i0 = blockIdx.x * stft::TF;
-  const int f0 = blockIdx.y * stft::TB;
-  const int n = blockIdx.z;
-  stft::Acc acc;
-  stft::stft_tile(sig_re, sig_im, cs, ss, smem, n, tp, n_fft, hop, f, i0, f0,
-                  acc);
-
-  // (bins, frames) tile in the basis chunk's space
-  float* s_out = smem + 2 * stft::span(n_fft, hop);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int a = 0; a < stft::kRows; ++a) {
-    for (int b = 0; b < stft::kRows; ++b) {
-      const float re = acc.re[a][b], im = acc.im[a][b];
-      s_out[(tx + 16 * b) * (stft::TF + 1) + ty + 16 * a] =
-          logf(sqrtf(re * re + im * im) + eps);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < stft::TB * stft::TF; i += blockDim.x) {
-    const int b = i / stft::TF, a = i % stft::TF;
-    if (i0 + a < frames) {
-      out[((size_t)n * f + f0 + b) * frames + i0 + a] =
-          s_out[b * (stft::TF + 1) + a];
-    }
-  }
+template <int N>
+cudaError_t launch(const float* re, const float* im, const float* window,
+                   const float* twiddles, float* out, int n, int t, int hop,
+                   int f, int frames, int pad, int fftshift, float eps,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float) * stft_fft::fwd_smem_floats(N, hop);
+  cudaError_t err = cudaFuncSetAttribute(
+      stft_fft::fwd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  constexpr int fg = stft_fft::frames_per_round(N);
+  const dim3 grid((frames + fg - 1) / fg, n);
+  stft_fft::fwd_kernel<N><<<grid, stft_fft::kThreads, smem, stream>>>(
+      re, im, window, twiddles, out, t, hop, f, frames, pad, fftshift, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch on `stream`; returns the launch's cudaError_t (0 on success).
-// sig_re/sig_im (N, tp) padded signal; cs/ss (n_fft, F); out (N, F, frames).
-extern "C" int stft_fwd_f32(const float* sig_re, const float* sig_im,
-                            const float* cs, const float* ss, float* out,
-                            int n, int tp, int n_fft, int hop, int f,
-                            int frames, float eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * stft::smem_floats(n_fft, hop);
-  cudaError_t err = cudaFuncSetAttribute(
-      stft_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((frames + stft::TF - 1) / stft::TF, f / stft::TB, n);
-  stft_fwd_kernel<<<grid, stft::kThreads, smem, stream>>>(
-      sig_re, sig_im, cs, ss, out, tp, n_fft, hop, f, frames, eps);
-  return cudaGetLastError();
+// Launch on `stream`; returns the launch's cudaError_t (0 on success;
+// cudaErrorInvalidValue for an n_fft other than 64, 128, 256, 512, 1024).
+// re/im (N, t) signal; window (n_fft); twiddles (n_fft, 2) (cos, sin) of
+// 2 pi e / n_fft; out (N, F, frames).
+extern "C" int stft_fwd_f32(const float* re, const float* im,
+                            const float* window, const float* twiddles,
+                            float* out, int n, int t, int n_fft, int hop,
+                            int f, int frames, int pad, int fftshift,
+                            float eps, cudaStream_t stream) {
+  switch (n_fft) {
+    case 64:
+      return launch<64>(re, im, window, twiddles, out, n, t, hop, f, frames,
+                        pad, fftshift, eps, stream);
+    case 128:
+      return launch<128>(re, im, window, twiddles, out, n, t, hop, f, frames,
+                         pad, fftshift, eps, stream);
+    case 256:
+      return launch<256>(re, im, window, twiddles, out, n, t, hop, f, frames,
+                         pad, fftshift, eps, stream);
+    case 512:
+      return launch<512>(re, im, window, twiddles, out, n, t, hop, f, frames,
+                         pad, fftshift, eps, stream);
+    case 1024:
+      return launch<1024>(re, im, window, twiddles, out, n, t, hop, f,
+                          frames, pad, fftshift, eps, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -2,31 +2,36 @@
 
 Counterpart of ``skeleton_action_recognition_tpu/ops/pallas/stft.py``
 (``stft_logmag``). For a complex signal given as two real channels ``re``,
-``im (N, T)`` and windowed bases ``cos``, ``sin (F, n_fft)``:
+``im (N, T)`` and windowed Fourier bases ``cos``, ``sin (F, n_fft)``
+(:func:`.stft.stft_basis`):
 
     ``out = log(|STFT(re + i im)| + eps)``,  ``(N, F, frames)``,
 
 centered (reflect padding of ``n_fft // 2``) and rolled by ``F // 2`` along
 the bins (fftshift) by default, equal to ``log_magnitude(*stft_complex(...))``
 of :mod:`.stft`. ``csrc/stft_fwd.cu`` (kernel #10, replacing
-``_fwd_kernel``) computes it without storing the frames or the complex
-spectrum; ``csrc/stft_bwd.cu`` (kernel #11, replacing ``_bwd_kernel`` and
-``_overlap_add``) is its VJP with respect to ``re`` and ``im``.
-:class:`StftLogmag` ties them into an autograd Function which, like the
-JAX VJP, gives the bases a zero cotangent (models that train the bases
+``_fwd_kernel``) computes it as one FFT a frame in the block, without
+storing the frames or the complex spectrum; ``csrc/stft_bwd.cu`` (kernel
+#11, replacing ``_bwd_kernel`` and ``_overlap_add``) is its VJP with
+respect to ``re`` and ``im``, the adjoint FFT and the overlap-add in the
+block. :class:`StftLogmag` ties them into an autograd Function which, like
+the JAX VJP, gives the bases a zero cotangent (models that train the bases
 take the route of :mod:`.stft`).
 
-The module is named apart from :mod:`.stft` as the JAX package's two
-``stft`` modules are. The reflect padding and the packing of the bases
-(the fftshift folded into them) are plain torch in the wrapper.
+The kernels take the bases the op's contract names, windowed Fourier
+bases, and read only their window: :func:`fourier_window` holds the bases
+to that contract and raises on any others. The module is named apart from
+:mod:`.stft` as the JAX package's two ``stft`` modules are.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from skeleton_action_recognition_tpu_torch.ops.build import (
-    MAX_SMEM_BYTES,
     check_cuda,
     kernel_function,
     launch,
@@ -38,9 +43,14 @@ from skeleton_action_recognition_tpu_torch.ops.stft import (
     stft_complex,
 )
 
-# csrc/stft_tile.cuh: frames and bins per block, samples per basis chunk
-_TF, _TB, _KC = 64, 64, 64
-
+# the n_fft the kernels take (csrc/stft_fft.cuh: 16 values a thread, a
+# block of 256 threads); every hop in [1, n_fft] fits in shared memory
+N_FFTS = (64, 128, 256, 512, 1024)
+# how far a basis entry may lie from cos / sin(2 pi k m / n_fft) w[m],
+# rebuilt in float64 from the window w = cos[0, :]: stft_basis rounds the
+# float64 product once (half an f32 ulp) and the window's rounding moves
+# it by as much again, so 4 ulps of |w[m]|
+BASIS_ULPS = 4
 
 def stft_logmag_reference(re, im, hop: int, cos, sin, eps: float = 1e-6,
                           fftshift: bool = True, center: bool = True):
@@ -110,15 +120,76 @@ def _check(re, im, cos, sin, hop):
         raise ValueError(f"hop {hop} must be in [1, n_fft]")
 
 
+def _check_sizes(f, n_fft):
+    if n_fft not in N_FFTS:
+        raise ValueError(f"the STFT kernels take a power-of-two n_fft from "
+                         f"64 to 1024, got n_fft={n_fft}")
+    if not 1 <= f <= n_fft:
+        raise ValueError(f"the STFT kernels take 1 <= F <= n_fft bins, got "
+                         f"F={f}, n_fft={n_fft}")
+
+
+# fourier_window's bases, each with its window: (device, data pointers,
+# versions, shape) -> (cos, sin, window). Holding the tensors keeps their
+# memory from being handed to other tensors while they are keys.
+_WINDOWS: dict = {}
+
+
+def fourier_window(cos, sin):
+    """The window ``w = cos[0, :]`` (``cos(0) = 1``) of windowed Fourier
+    bases ``cos``, ``sin (F, n_fft)``, the contract of the kernels (the JAX
+    op's: :func:`.stft.stft_basis`), after holding every entry to
+    ``cos(2 pi k m / n_fft) w[m]`` and ``sin(2 pi k m / n_fft) w[m]``
+    rebuilt in float64, within ``BASIS_ULPS * 2^-24 |w[m]|``. Raises
+    ``ValueError`` on other bases, or on sizes the kernels do not take.
+
+    The check runs once for each bases tensor (a comparison on its device
+    and one sync), and is kept by device, data pointer, version and shape,
+    so that a train step repeats none of it."""
+    f, n_fft = cos.shape
+    _check_sizes(f, n_fft)
+    key = (cos.device, cos.data_ptr(), cos._version, sin.data_ptr(),
+           sin._version, tuple(cos.shape), tuple(sin.shape))
+    if key in _WINDOWS:
+        return _WINDOWS[key][2]
+    cos, sin = cos.detach(), sin.detach()
+    w = cos[0].double()
+    k = torch.arange(f, device=cos.device)[:, None]
+    m = torch.arange(n_fft, device=cos.device)[None, :]
+    arg = (k * m % n_fft).double() * (2 * np.pi / n_fft)
+    tol = BASIS_ULPS * 2.0**-24 * w.abs()
+    fits = all(
+        bool(((b.double() - fn(arg) * w).abs() <= tol).all())
+        for b, fn in ((cos, torch.cos), (sin, torch.sin)))
+    if not fits:
+        raise ValueError(
+            "the STFT kernels take windowed Fourier bases "
+            "(ops/stft.py::stft_basis): cos / sin(2 pi k m / n_fft) w[m]; "
+            "other bases take the route of ops/stft.py (stft_complex and "
+            "log_magnitude, use_pallas_stft=False)")
+    window = cos[0].contiguous()
+    _WINDOWS[key] = (cos, sin, window)
+    if len(_WINDOWS) > 8:
+        _WINDOWS.pop(next(iter(_WINDOWS)))
+    return window
+
+
+@functools.lru_cache(maxsize=16)
+def twiddles(n_fft: int, device) -> torch.Tensor:
+    """``(n_fft, 2)``: ``cos``, ``sin`` of ``2 pi e / n_fft``, computed in
+    float64 and rounded once; the kernels' inter-pass twiddles."""
+    e = np.arange(n_fft) * (2 * np.pi / n_fft)
+    table = np.stack([np.cos(e), np.sin(e)], 1).astype(np.float32)
+    return torch.from_numpy(table).to(device)
+
+
 def _plan(re, cos, hop, center):
-    """``(t, tp, n_fft, f, frames, pad)`` of the kernel path, or raise on
-    what the kernels do not take."""
+    """``(t, n_fft, f, frames, pad)`` of the kernel path, or raise on what
+    the kernels do not take."""
     t = re.shape[1]
     f, n_fft = cos.shape
+    _check_sizes(f, n_fft)
     pad = n_fft // 2 if center else 0
-    if n_fft % _KC or f % _TB:
-        raise ValueError(f"the STFT kernels take n_fft % {_KC} == 0 and "
-                         f"F % {_TB} == 0, got n_fft={n_fft}, F={f}")
     if center and t <= pad + 1:
         # the reflect fold of the backward holds for one reflection only
         raise ValueError(f"the STFT kernels need T > n_fft / 2 + 1 = "
@@ -126,19 +197,7 @@ def _plan(re, cos, hop, center):
     tp = t + 2 * pad
     if tp < n_fft:
         raise ValueError(f"signal of {tp} samples holds no {n_fft}-frame")
-    span = (_TF - 1) * hop + n_fft
-    smem = 4 * (2 * span + max(2 * _KC * _TB, 2 * _TB * (_TF + 1)))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"hop {hop} needs {smem} bytes of shared memory "
-                         "a block, more than Hopper has")
-    return t, tp, n_fft, f, (tp - n_fft) // hop + 1, pad
-
-
-
-def _padded(re, im, pad):
-    if not pad:
-        return re.contiguous(), im.contiguous()
-    return reflect_pad(re, pad), reflect_pad(im, pad)
+    return t, n_fft, f, (tp - n_fft) // hop + 1, pad
 
 
 def _forward(re, im, hop, cos, sin, eps, fftshift, center):
@@ -148,17 +207,16 @@ def _forward(re, im, hop, cos, sin, eps, fftshift, center):
         return stft_logmag_reference(re, im, hop, cos, sin, eps, fftshift,
                                      center)
     check_cuda("STFT", re=re, im=im, cos=cos, sin=sin)
-    t, tp, n_fft, f, frames, pad = _plan(re, cos, hop, center)
+    t, n_fft, f, frames, pad = _plan(re, cos, hop, center)
+    window = fourier_window(cos, sin)
     n = re.shape[0]
-    re_p, im_p = _padded(re, im, pad)
-    c_r, s_r = _rolled(cos, sin, fftshift)
-    cs, ss = c_r.T.contiguous(), s_r.T.contiguous()  # (n_fft, F)
     out = torch.empty((n, f, frames), dtype=torch.float32, device=re.device)
     launch(
-        kernel_function("stft_fwd.cu", "stft_fwd_f32", 5, 6, 1),
+        kernel_function("stft_fwd.cu", "stft_fwd_f32", 5, 8, 1),
         "stft_fwd", re.device,
-        re_p.data_ptr(), im_p.data_ptr(), cs.data_ptr(), ss.data_ptr(),
-        out.data_ptr(), n, tp, n_fft, hop, f, frames, eps,
+        re.data_ptr(), im.data_ptr(), window.data_ptr(),
+        twiddles(n_fft, re.device).data_ptr(), out.data_ptr(),
+        n, t, n_fft, hop, f, frames, pad, int(fftshift), eps,
     )
     stft_logmag.launches += 1
     return out
@@ -176,28 +234,23 @@ def stft_logmag_backward(re, im, hop: int, cos, sin, g, eps: float = 1e-6,
         return stft_logmag_backward_reference(re, im, hop, cos, sin, g, eps,
                                               fftshift, center)
     check_cuda("STFT", re=re, im=im, cos=cos, sin=sin, g=g)
-    t, tp, n_fft, f, frames, pad = _plan(re, cos, hop, center)
+    t, n_fft, f, frames, pad = _plan(re, cos, hop, center)
     n = re.shape[0]
     if g.dtype != torch.float32 or tuple(g.shape) != (n, f, frames):
         raise ValueError(f"g must be float32 {(n, f, frames)}, got "
                          f"{g.dtype} {tuple(g.shape)}")
-    re_p, im_p = _padded(re, im, pad)
-    c_r, s_r = _rolled(cos, sin, fftshift)
-    cs, ss = c_r.T.contiguous(), s_r.T.contiguous()
-    kb = torch.cat([torch.cat([c_r, s_r], 1), torch.cat([-s_r, c_r], 1)])
-    gbuf = torch.empty((n, frames, 2 * f), dtype=torch.float32,
-                       device=re.device)
-    dfr = torch.empty((n, frames, 2 * n_fft), dtype=torch.float32,
-                      device=re.device)
+    window = fourier_window(cos, sin)
     dre = torch.empty_like(re)
     dim = torch.empty_like(im)
+    # the reflect padding's sums, (re, im) x (left, right) x pad a signal
+    edges = torch.empty((n, 4 * pad), dtype=torch.float32, device=re.device)
     launch(
-        kernel_function("stft_bwd.cu", "stft_bwd_f32", 10, 8, 1),
+        kernel_function("stft_bwd.cu", "stft_bwd_f32", 8, 8, 1),
         "stft_bwd", re.device,
-        re_p.data_ptr(), im_p.data_ptr(), cs.data_ptr(), ss.data_ptr(),
-        kb.data_ptr(), g.data_ptr(), gbuf.data_ptr(), dfr.data_ptr(),
-        dre.data_ptr(), dim.data_ptr(),
-        n, tp, t, n_fft, hop, f, frames, pad, eps,
+        re.data_ptr(), im.data_ptr(), window.data_ptr(),
+        twiddles(n_fft, re.device).data_ptr(), g.data_ptr(),
+        dre.data_ptr(), dim.data_ptr(), edges.data_ptr(),
+        n, t, n_fft, hop, f, frames, pad, int(fftshift), eps,
     )
     stft_logmag_backward.launches += 1
     return dre, dim
@@ -231,8 +284,9 @@ def stft_logmag(re, im, hop: int, cos, sin, *, eps: float = 1e-6,
 
     CPU tensors go to the plain versions; CUDA tensors launch kernel #10
     (counted in ``stft_logmag.launches``) and, in the backward, kernel #11,
-    or raise. The kernels take ``n_fft`` and ``F`` in multiples of 64 and,
-    centered, ``T > n_fft / 2 + 1``.
+    or raise. The kernels take windowed Fourier bases
+    (:func:`fourier_window`) of a power-of-two ``n_fft`` from 64 to 1024,
+    ``F <= n_fft`` bins and, centered, ``T > n_fft / 2 + 1``.
     """
     _check(re, im, cos, sin, hop)
     return StftLogmag.apply(re, im, cos, sin, int(hop), float(eps),

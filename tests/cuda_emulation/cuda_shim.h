@@ -1,8 +1,9 @@
-// The CUDA constructs the f32 spatial graph-conv kernels use, emulated on
-// the CPU: a block's threads are std::threads, __syncthreads a barrier,
-// dynamic shared memory a static array, blockIdx and threadIdx thread-local.
-// Force-included (-include) before the kernels' header; see
-// tests/test_torch_sgcn_emulated.py.
+// The CUDA constructs of the f32 spatial graph-conv kernels
+// (sgcn_tile_f32.cuh) and the STFT kernels (stft_fft.cuh), emulated on the
+// CPU: a block's threads are std::threads, __syncthreads a barrier, dynamic
+// shared memory a static array, blockIdx and threadIdx thread-local.
+// Force-included (-include) before a kernels' header; see
+// tests/test_torch_sgcn_emulated.py and tests/test_torch_stft_emulated.py.
 #pragma once
 #include <algorithm>
 #include <barrier>

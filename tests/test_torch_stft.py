@@ -152,13 +152,76 @@ def test_plain_backward_equals_autograd_of_the_plain_route():
 def test_kernel_path_refuses_what_it_cannot_fold():
     """The kernel path raises on T <= n_fft / 2 + 1 when centered (its
     reflect fold holds for one reflection only, as the JAX backward's
-    unpad) and on bases whose sizes the kernels' tiles do not divide."""
+    unpad) and on bases of sizes its FFTs do not take: an n_fft that is no
+    power of two from 64 to 1024, or more bins than n_fft. Fewer bins are
+    taken (the first F, as ``stft_basis(n_fft, F)`` makes them)."""
     cos, sin = _bases()
     with pytest.raises(ValueError, match="T > n_fft / 2 \\+ 1"):
         stft_logmag._plan(torch.zeros(1, 129), cos, HOP, True)
     stft_logmag._plan(torch.zeros(1, 130), cos, HOP, True)
-    with pytest.raises(ValueError, match="multiples|% 64"):
-        stft_logmag._plan(torch.zeros(1, 600), cos[:100], HOP, True)
+    stft_logmag._plan(torch.zeros(1, 600), cos[:100], HOP, True)
+    with pytest.raises(ValueError, match="power-of-two"):
+        stft_logmag._plan(torch.zeros(1, 600), cos[:, :192], HOP, True)
+    with pytest.raises(ValueError, match="F <= n_fft"):
+        stft_logmag._plan(torch.zeros(1, 600), torch.cat([cos, cos]), HOP,
+                          True)
+
+
+@pytest.mark.parametrize("n_fft,f,window", [
+    (256, None, "hann"), (256, None, "hamming"), (64, 40, "hann"),
+    (1024, None, "hann"), (512, 300, "hamming")])
+def test_fourier_window_takes_stft_basis(n_fft, f, window):
+    """``stft_basis``'s bases, Hann or Hamming, all bins or the first F:
+    the window is their first row, bit for bit."""
+    cos, sin = (torch.from_numpy(b) for b in stft.stft_basis(n_fft, f, window))
+    got = stft_logmag.fourier_window(cos, sin)
+    assert torch.equal(got, cos[0])
+    assert stft_logmag.fourier_window(cos, sin) is got  # kept
+
+
+@pytest.mark.parametrize("change", ["cos entry", "sin entry", "sin sign",
+                                    "swapped", "random"])
+def test_fourier_window_raises_on_other_bases(change):
+    """Bases the kernels would not reproduce: one entry off by 1e-5 (tens
+    of ulps), sin with the other sign, cos and sin swapped, a random pair."""
+    cos, sin = (b.clone() for b in _bases())
+    if change == "cos entry":
+        cos[3, 5] += 1e-5
+    elif change == "sin entry":
+        sin[200, 100] -= 1e-5
+    elif change == "sin sign":
+        sin = -sin
+    elif change == "swapped":
+        cos, sin = sin, cos
+    else:
+        gen = torch.Generator().manual_seed(0)
+        cos, sin = (torch.randn(N_FFT, N_FFT, generator=gen)
+                    for _ in range(2))
+    with pytest.raises(ValueError, match="Fourier bases"):
+        stft_logmag.fourier_window(cos, sin)
+
+
+def test_fourier_window_raises_on_n_fft_192():
+    cos, sin = (torch.from_numpy(b) for b in stft.stft_basis(192))
+    with pytest.raises(ValueError, match="power-of-two"):
+        stft_logmag.fourier_window(cos, sin)
+
+
+def test_fourier_window_checks_bases_written_in_place():
+    """A bases tensor written in place after its check is checked again
+    (the check is kept by the tensor's version)."""
+    cos, sin = (b.clone() for b in _bases())
+    stft_logmag.fourier_window(cos, sin)
+    cos[7, 9] += 1e-3
+    with pytest.raises(ValueError, match="Fourier bases"):
+        stft_logmag.fourier_window(cos, sin)
+
+
+def test_twiddles_are_rounded_once_from_float64():
+    got = stft_logmag.twiddles(256, torch.device("cpu"))
+    e = np.arange(256) * (2 * np.pi / 256)
+    np.testing.assert_array_equal(
+        got.numpy(), np.stack([np.cos(e), np.sin(e)], 1).astype(np.float32))
 
 
 def test_cpu_wrapper_counts_no_launch():
