@@ -71,12 +71,15 @@ so the exit code is not 0.
    the prediction (20 forward and 10 backward a train step with remat, 10
    forward an eval batch). Also the TFRecord decode rate of this host.
 
-9. ``radar_kernel``: the spline radar kernels (#6 forward, #7 backward)
+9. ``radar_build``: registers, spills and shared memory of the spline
+   radar kernels (csrc/radar_spline.cuh: #6, #7 and #7's loc/lambda
+   instance); a spill fails the script. ``radar_kernel``: those three
    against their plain versions at the spectrogram trainer's shape (16
    clips, T=300 upsampled 250x to 75,000 samples, 24 edges x 2 bodies),
    seeded skeleton-like clips with one empty body, at lambda = 5e-4 and at
-   a damped lambda = 10: the error of each output, two backward launches
-   bit for bit, CUDA-event times of kernel and plain.
+   a damped lambda = 10: the error of each output, two launches of each
+   backward instance bit for bit, whether the instances' dloc/dlambda
+   agree bit for bit, CUDA-event times of kernel and plain.
    ``radar_dense_kernel``: the dense-operator radar kernels (#8 forward, #9
    backward) against their plain versions on the same clips (the operator
    ``pad_frames_operator(300, 250)`` padded to 512-row tiles), at both
@@ -113,8 +116,9 @@ so the exit code is not 0.
     unfrozen (lambda and loc), timed in turns (10 steps after 3 warm-up,
     each ending synchronized): step time, clips/s, peak memory, the loss
     finite (and falling while frozen), exactly 1 + 1 forward launches a
-    step and 1 + 1 backward launches a step unfrozen, none frozen. Then a
-    profiler trace of 3 unfrozen kernel steps.
+    step and 1 + 1 backward launches a step unfrozen (#7's loc/lambda
+    instance, never the full one: the joints are data), none frozen. Then
+    a profiler trace of 3 unfrozen kernel steps.
 12. ``spec_cli``: ``cli.main_spectrogram.main`` on a seeded synthetic
     ``.npy`` + pickled-label set (T=300, 60 classes, 48 training and 20
     validation clips, B=16, kernels on), 2 epochs with lambda and loc
@@ -134,7 +138,10 @@ cuDNN's conv alone as ``library_ms``, and the bf16 numbers beside as
 ``bf16_*`` (with ``bf16_library_ms``); ``radar_*``/``stft_*``: one call at
 16 clips, lambda = 5e-4, with the operator products alone as the dense
 radar kernels' ``library_ms`` and ``torch.stft`` and its backward as the
-STFT kernels' (their ``dft_bound_ms`` beside); ``bound_ms``: the least
+STFT kernels' (their ``dft_bound_ms`` beside); ``radar_bwd`` the numbers
+of #7's loc/lambda instance beside as ``loc_lam_ms``, ``loc_lam_plain_ms``,
+``loc_lam_bound_ms``, ``loc_lam_bound_by``, ``loc_lam_max_abs_err`` and
+``loc_lam_launches`` (its ``launches`` count both instances); ``bound_ms``: the least
 time of the same work at the card's published f32 (bf16) peak and memory
 rate; ``launches``: the
 counts of the ``cli`` run for ``sgcn_fwd``/``sgcn_bwd``, of the
@@ -314,6 +321,10 @@ PEAK_BYTES = 3.35e12
 # recomputes those and adds the cotangent chain (94) and the contraction
 # with the tile's monomials (52)
 RADAR_FWD_OPS, RADAR_BWD_OPS = 104, 244
+# #7's loc/lambda instance: the backward without the contraction (52) and
+# without the chain's cotangents of the bone (g_b and 1 / |b|: 16), of the
+# endpoints (15) and of c (5)
+RADAR_BWD_LOC_LAM_OPS = RADAR_BWD_OPS - 52 - 36
 # the dense kernels' operations of a pair beyond their contractions (which
 # are counted apart): the scatter math and sum, and the recomputed scatter
 # math and cotangent chain (the spline counts without the cubics and the
@@ -1009,6 +1020,7 @@ COUNTERS = {
     "tconv_bwd": tconv.affine_relu_tconv_backward,
     "radar_fwd": radar.spline_radar,
     "radar_bwd": radar.spline_radar_backward,
+    "radar_bwd_loc_lam": radar.spline_radar_loc_lam_backward,
     "radar_dense_fwd": radar.dense_radar,
     "radar_dense_bwd": radar.dense_radar_backward,
     "stft_fwd": stft_logmag.stft_logmag,
@@ -1298,6 +1310,8 @@ def phase_cli(device):
 
 
 SPEC_KERNELS = ("radar_fwd", "radar_bwd", "stft_fwd", "stft_bwd")
+# the spectrogram paths' counts: the kernels and #7's loc/lambda instance
+SPEC_COUNTS = SPEC_KERNELS + ("radar_bwd_loc_lam",)
 
 
 def spec_clips(n, seed):
@@ -1321,10 +1335,38 @@ def max_abs_err(ps, qs):
                for p, q in zip(ps, qs))
 
 
+def radar_build_report():
+    """Registers, spills and dynamic shared memory at the trainer's shape
+    of the spline radar kernels (csrc/radar_spline.cuh: #6's fwd_kernel,
+    #7's bwd_kernel in its full and its loc/lambda instance, and their
+    reduce_kernel)."""
+    ns4, em = 16, 48  # NS = 4 segments a 512-row tile; 24 edges x 2 bodies
+    return {
+        "ptxas": {**ptxas_entries("radar_fwd.cu", "radar_spline"),
+                  **ptxas_entries("radar_bwd.cu", "radar_spline")},
+        "smem_bytes": {
+            "fwd_kernel": radar._forward_smem(ns4, em),
+            "bwd_kernel_full": radar._backward_smem(ns4, radar.TILE, em,
+                                                    True),
+            "bwd_kernel_loc_lam": radar._backward_smem(ns4, radar.TILE, em,
+                                                       False),
+        },
+    }
+
+
+def phase_radar_build():
+    report = radar_build_report()
+    emit("radar_build", **report)
+    check(len(report["ptxas"]) == 5,
+          f"radar build report names {sorted(report['ptxas'])}")
+    check(not spilling(report["ptxas"]),
+          f"a spline radar kernel spills: {spilling(report['ptxas'])}")
+
+
 def phase_radar_kernel(device):
-    """Kernels #6 and #7 against their plain versions at the trainer's
-    shape; returns the kernels line's entries (lambda = 5e-4) and that
-    radar return for the STFT phase."""
+    """Kernels #6, #7 and #7's loc/lambda instance against their plain
+    versions at the trainer's shape; returns the kernels line's entries
+    (lambda = 5e-4) and that radar return for the STFT phase."""
     x, _ = spec_clips(SPEC_BATCH, SEED)
     e, src, dst, c, t_out = radar.spline_inputs(
         torch.from_numpy(x).to(device), SPEC_UP)
@@ -1338,8 +1380,13 @@ def phase_radar_kernel(device):
         out = radar.spline_radar(*args, t_out)
         got = radar.spline_radar_backward(*args, gre, gim, t_out)
         again = radar.spline_radar_backward(*args, gre, gim, t_out)
+        ll = radar.spline_radar_loc_lam_backward(*args, gre, gim, t_out)
+        ll_again = radar.spline_radar_loc_lam_backward(*args, gre, gim, t_out)
         torch.cuda.synchronize()
-        bit_identical = all(torch.equal(p, q) for p, q in zip(got, again))
+        bit_identical = all(torch.equal(p, q) for p, q in
+                            zip(got + ll, again + ll_again))
+        loc_lam_equals_full = all(torch.equal(p, q)
+                                  for p, q in zip(ll, got[3:]))
         want = radar.spline_radar_reference(*args, t_out)
         want_bwd = radar.spline_radar_backward_reference(*args, gre, gim,
                                                          t_out)
@@ -1347,7 +1394,9 @@ def phase_radar_kernel(device):
                            (rel_err(p, q) for p, q in zip(out, want))))
         bwd_err = dict(zip(("dsrc", "ddst", "dc", "dloc", "dlambda"),
                            (rel_err(p, q) for p, q in zip(got, want_bwd))))
-        no_nan = not any(torch.isnan(p).any().item() for p in got)
+        ll_err = dict(zip(("dloc", "dlambda"),
+                          (rel_err(p, q) for p, q in zip(ll, want_bwd[3:]))))
+        no_nan = not any(torch.isnan(p).any().item() for p in got + ll)
         pairs = SPEC_BATCH * t_out * (src.shape[2] // 3)
         lam_t = args[5]
         fwd_bound = bound(RADAR_FWD_OPS * pairs,
@@ -1355,6 +1404,9 @@ def phase_radar_kernel(device):
         bwd_bound = bound(RADAR_BWD_OPS * pairs,
                           nbytes(e, src, dst, c, loc, lam_t, gre, gim, *got),
                           "f32")
+        ll_bound = bound(RADAR_BWD_LOC_LAM_OPS * pairs,
+                         nbytes(e, src, dst, c, loc, lam_t, gre, gim, *ll),
+                         "f32")
         entries = {
             "radar_fwd": {
                 "ms": cuda_ms(lambda: radar.spline_radar(*args, t_out)),
@@ -1373,12 +1425,24 @@ def phase_radar_kernel(device):
                 "max_abs_err": max_abs_err(got, want_bwd),
                 "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
                 "library_ms": None,
+                "loc_lam_ms": cuda_ms(
+                    lambda: radar.spline_radar_loc_lam_backward(
+                        *args, gre, gim, t_out)),
+                "loc_lam_plain_ms": cuda_ms(
+                    lambda: radar.spline_radar_backward_reference(
+                        *args, gre, gim, t_out, coef_grads=False), 5, 1),
+                "loc_lam_max_abs_err": max_abs_err(ll, want_bwd[3:]),
+                "loc_lam_bound_ms": ll_bound[0],
+                "loc_lam_bound_by": ll_bound[1],
             },
         }
         emit(
             "radar_kernel", lam=lam_v, n=SPEC_BATCH, t_out=t_out,
             tiles=e.shape[0], rel_err=fwd_err, bwd_rel_err=bwd_err,
-            rel_tol=RADAR_TOL[lam_v], bit_identical=bit_identical,
+            loc_lam_rel_err=ll_err, rel_tol=RADAR_TOL[lam_v],
+            bit_identical=bit_identical,
+            loc_lam_equals_full=loc_lam_equals_full,
+            loc_lam_vs_full_abs_diff=max_abs_err(ll, got[3:]),
             dlambda=got[4].item(), **{
                 f"{k}_{m}": v[m] for k, v in entries.items() for m in v},
         )
@@ -1389,9 +1453,12 @@ def phase_radar_kernel(device):
               f"radar_fwd disagrees at lambda {lam_v}: {fwd_err}")
         check(max(bwd_err.values()) <= bwd_tol,
               f"radar_bwd disagrees at lambda {lam_v}: {bwd_err}")
+        check(max(ll_err.values()) <= bwd_tol,
+              f"radar_bwd's loc/lambda instance disagrees at lambda "
+              f"{lam_v}: {ll_err}")
         if lam_v == LAMBDAS[0]:
             totals, signal = entries, out
-        del got, again, want, want_bwd
+        del got, again, ll, ll_again, want, want_bwd
     torch.cuda.empty_cache()
     return totals, signal
 
@@ -1803,9 +1870,12 @@ def phase_spec_train(device):
                 start = time.perf_counter()
                 losses[route].append(runs[route]())
                 times[route].append(time.perf_counter() - start)
-        launches = read_launches(SPEC_KERNELS)
+        launches = read_launches(SPEC_COUNTS)
+        # unfrozen, only lambda and loc need a gradient: #7's loc/lambda
+        # instance, never the full one
         backward = TRAIN_STEPS if unfrozen else 0
-        predicted = {"radar_fwd": TRAIN_STEPS, "radar_bwd": backward,
+        predicted = {"radar_fwd": TRAIN_STEPS, "radar_bwd": 0,
+                     "radar_bwd_loc_lam": backward,
                      "stft_fwd": TRAIN_STEPS, "stft_bwd": backward}
         for route, samples in times.items():
             torch.cuda.reset_peak_memory_stats()
@@ -1859,19 +1929,21 @@ def phase_spec_cli(device):
         evals = -(-SPEC_CLI_CLIPS["val"] // SPEC_BATCH)
         # each train step and eval batch: one radar and one STFT forward;
         # each train step after epoch 0 (lambda and loc unfrozen): one of
-        # each backward; epoch 0: none
+        # each backward, #7's loc/lambda instance; epoch 0: none
         fwd = steps + evals
-        first_predicted = {"radar_fwd": 2 * fwd, "radar_bwd": steps,
-                           "stft_fwd": 2 * fwd, "stft_bwd": steps}
-        predicted = {"radar_fwd": 3 * fwd, "radar_bwd": 2 * steps,
-                     "stft_fwd": 3 * fwd, "stft_bwd": 2 * steps}
+        first_predicted = {"radar_fwd": 2 * fwd, "radar_bwd": 0,
+                           "radar_bwd_loc_lam": steps, "stft_fwd": 2 * fwd,
+                           "stft_bwd": steps}
+        predicted = {"radar_fwd": 3 * fwd, "radar_bwd": 0,
+                     "radar_bwd_loc_lam": 2 * steps, "stft_fwd": 3 * fwd,
+                     "stft_bwd": 2 * steps}
         # the main path: the counts cover exactly the two runs
         reset_launches()
         history = main_spectrogram.main(argv)
-        first = read_launches(SPEC_KERNELS)
+        first = read_launches(SPEC_COUNTS)
         history += main_spectrogram.main(
             argv[:9] + ["3"] + argv[10:] + ["--resume"])
-        launches = read_launches(SPEC_KERNELS)
+        launches = read_launches(SPEC_COUNTS)
         (run,) = os.listdir(os.path.join(tmp, "logs"))
         ckpt_dir = os.path.join(tmp, "logs", run, "checkpoints")
         checkpoints = sorted(int(d) for d in os.listdir(ckpt_dir))
@@ -1915,12 +1987,17 @@ def main():
     launches = phase_cli(device)
     torch.cuda.empty_cache()
     tf32_off()
+    phase_radar_build()
     spec_totals, (re, im) = phase_radar_kernel(device)
     dense_totals = phase_radar_dense_kernel(device)
     spec_totals.update(phase_stft_kernel(device, re, im))
     del re, im
     phase_spec_train(device)
     spec_launches = phase_spec_cli(device)
+    # #7's entry counts both instances; the loc/lambda one's count beside
+    loc_lam = spec_launches.pop("radar_bwd_loc_lam")
+    spec_totals["radar_bwd"]["loc_lam_launches"] = loc_lam
+    spec_launches["radar_bwd"] += loc_lam
     print(json.dumps({"kernels": [
         {"name": "sgcn_fwd", "route": "cuda", "source": SGCN_SOURCE,
          "replaces": SGCN_REPLACES, "launches": launches["sgcn_fwd"],

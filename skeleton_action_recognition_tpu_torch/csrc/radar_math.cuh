@@ -1,4 +1,6 @@
-// The per-(sample, edge) radar math shared by radar_fwd.cu and radar_bwd.cu.
+// The per-(sample, edge) radar math of the dense radar kernels
+// (radar_dense_fwd.cu, radar_dense_bwd.cu); radar_spline.cuh takes its
+// constants and a cheaper form of it.
 //
 // A transcription of skeleton_action_recognition_tpu/ops/pallas/radar.py::
 // _scatter_fwd_core and _scatter_bwd_core for one time sample and one
@@ -108,34 +110,6 @@ __device__ __forceinline__ void scatter_bwd(Point l, Point s, Point d,
   gd = {-0.5f * g_ax + g_bx, -0.5f * g_ay + g_by, -0.5f * g_az + g_bz};
   gl = {-g_rx + g_ax, -g_ry + g_ay, -g_rz + g_az};
   glam = (-k / lam) * (g_phase * dist);
-}
-
-// The spline slot of padded row r of a tile: the tile's monomials
-// e_tile (ns4 rows of `stride` floats, one column per padded row) are
-// one-hot in (slot, k), with the constant term e[4 slot + 3] equal to 1 on
-// every row before t_out. Returns the slot (-1 if none) and the slot's four
-// monomials m[k] = u^(3 - k).
-__device__ __forceinline__ int row_slot(const float* e_tile, int ns4,
-                                        int stride, int r, float m[4]) {
-  int slot = -1;
-  for (int s = 0; s < ns4 / 4; ++s) {
-    if (e_tile[(4 * s + 3) * stride + r] != 0.0f) slot = s;
-  }
-  for (int kk = 0; kk < 4; ++kk) {
-    m[kk] = slot >= 0 ? e_tile[(4 * slot + kk) * stride + r] : 0.0f;
-  }
-  return slot;
-}
-
-// Position coordinate f (row f of a (3 EM, ns4) coefficient tile in shared
-// memory) at a row of the given slot: the cubic sum_k coef[4 slot + k] m[k].
-// The other slots' monomials are exact zeros, so this is the one-hot
-// contraction of the JAX kernel, summed in another order.
-__device__ __forceinline__ float eval_cubic(const float* coef, int ns4,
-                                            int f, int slot,
-                                            const float m[4]) {
-  const float* q = coef + f * ns4 + 4 * slot;
-  return q[0] * m[0] + q[1] * m[1] + q[2] * m[2] + q[3] * m[3];
 }
 
 }  // namespace radar

@@ -30,8 +30,11 @@ the per-tile segment coefficients of every edge endpoint ``src``/``dst
 edge-body pair's ellipsoid-RCS return ``amp * exp(i 4 pi d / lambda)``;
 ``csrc/radar_bwd.cu`` (kernel #7, replacing ``_radar_spline_bwd_kernel``)
 is its VJP with respect to ``src``, ``dst``, ``c``, ``loc`` and
-``lambda``, the monomials being a constant. :class:`SplineRadar` ties
-them into an autograd Function.
+``lambda``, the monomials being a constant, in two instances: all five
+cotangents, or only ``loc``'s and ``lambda``'s where nothing else needs
+one (the spectrogram trainer's case). Both kernels' device code is
+``csrc/radar_spline.cuh``. :class:`SplineRadar` ties them into an
+autograd Function.
 
 The coefficient contraction, the segment gather and the bone lengths
 (:func:`bone_length_mean_sq_spline`) are plain torch here, as they are
@@ -70,9 +73,9 @@ from skeleton_action_recognition_tpu_torch.ops.virtual_radar import (
 
 TILE = 512
 _FOUR_PI = 4.0 * math.pi
-# the kernels' block size (csrc/radar_fwd.cu, radar_bwd.cu), with which
-# the wrapper sizes their shared memory before launching
-_THREADS = 256
+# the backward kernel's block size (csrc/radar_spline.cuh, kBwdThreads),
+# with which the wrapper sizes its shared memory before launching
+_BWD_THREADS = 192
 # tiles a plain version evaluates at once: bounds its temporaries to a few
 # hundred MB at the production shape (N = 16, 147 tiles of 512 rows)
 _PLAIN_TILES = 16
@@ -104,11 +107,12 @@ def _inv(v):
     return torch.where(v > 0, 1.0 / torch.where(v > 0, v, 1.0), 0.0)
 
 
-def _scatter_bwd(lam, loc, s, d, c, gre, gim):
+def _scatter_bwd(lam, loc, s, d, c, gre, gim, coef=True):
     """The JAX kernel's ``_scatter_bwd_core``: the cotangents
     ``(g_s, g_d, g_c, g_l, g_lam)`` of one batch of pairs from the output
     cotangent ``(gre, gim)``, with its guards (``sign(u)``, ``amp / 2c`` only
-    where ``c > 0``, zero inverses of zero norms)."""
+    where ``c > 0``, zero inverses of zero norms). With ``coef=False`` only
+    ``g_l`` and ``g_lam`` (the same values), and ``None`` for the others."""
     lx, ly, lz = loc[0], loc[1], loc[2]
     sx, sy, sz = s
     dx, dy, dz = d
@@ -135,22 +139,24 @@ def _scatter_bwd(lam, loc, s, d, c, gre, gim):
     g_au = -(amp / au) * g_amp
     g_u = torch.sign(u) * g_au
     g_ct = g_u * (2.0 * ct * (c - 1.0))
-    g_c = g_u * ct2 + g_amp * torch.where(c > 0, amp / (2.0 * c), 0.0)
     g_dot = g_ct / den
     g_den = g_ct * (-ct / den)
     inv_na, inv_nb, inv_d = _inv(na), _inv(nb), _inv(dist)
     g_ax = g_dot * bx + g_den * nb * ax * inv_na
     g_ay = g_dot * by + g_den * nb * ay * inv_na
     g_az = g_dot * bz + g_den * nb * az * inv_na
+    g_rx, g_ry, g_rz = g_dist * rx * inv_d, g_dist * ry * inv_d, g_dist * rz * inv_d
+    g_l = (-g_rx + g_ax, -g_ry + g_ay, -g_rz + g_az)
+    g_lam = (-k / lam) * (g_phase * dist)
+    if not coef:
+        return None, None, None, g_l, g_lam
+    g_c = g_u * ct2 + g_amp * torch.where(c > 0, amp / (2.0 * c), 0.0)
     g_bx = g_dot * ax + g_den * na * bx * inv_nb
     g_by = g_dot * ay + g_den * na * by * inv_nb
     g_bz = g_dot * az + g_den * na * bz * inv_nb
-    g_rx, g_ry, g_rz = g_dist * rx * inv_d, g_dist * ry * inv_d, g_dist * rz * inv_d
     g_s = (g_rx - 0.5 * g_ax - g_bx, g_ry - 0.5 * g_ay - g_by,
            g_rz - 0.5 * g_az - g_bz)
     g_d = (-0.5 * g_ax + g_bx, -0.5 * g_ay + g_by, -0.5 * g_az + g_bz)
-    g_l = (-g_rx + g_ax, -g_ry + g_ay, -g_rz + g_az)
-    g_lam = (-k / lam) * (g_phase * dist)
     return g_s, g_d, g_c, g_l, g_lam
 
 
@@ -184,12 +190,14 @@ def spline_radar_reference(e, src, dst, c, loc, lam, t_out: int):
 
 
 def spline_radar_backward_reference(e, src, dst, c, loc, lam, gre, gim,
-                                    t_out: int):
+                                    t_out: int, coef_grads: bool = True):
     """Plain PyTorch kernel #7: the cotangents ``(dsrc, ddst, dc, dloc,
     dlam)`` of :func:`spline_radar_reference` from ``(gre, gim) (N,
     t_out)``: a transcription of the JAX kernel's ``_scatter_bwd_core`` and
     the contraction of the per-row cotangents with the monomials. (Autograd
-    through the plain forward gives NaN where ``c = 0``.)"""
+    through the plain forward gives NaN where ``c = 0``.) With
+    ``coef_grads=False`` it computes only ``dloc`` and ``dlam``, the same
+    values, and returns ``(None, None, None, dloc, dlam)``."""
     n, num_tiles, f3, ns4 = src.shape
     tile = e.shape[2]
     pad = num_tiles * tile - t_out
@@ -206,14 +214,18 @@ def spline_radar_backward_reference(e, src, dst, c, loc, lam, gre, gim,
         g_s, g_d, g_c, g_l, g_lam = _scatter_bwd(
             lam, loc, _positions(src[:, j0:j1], ej),
             _positions(dst[:, j0:j1], ej), cb,
-            gre[:, j0:j1, None], gim[:, j0:j1, None],
+            gre[:, j0:j1, None], gim[:, j0:j1, None], coef_grads,
         )
+        dloc = dloc + torch.stack([g.sum() for g in g_l])
+        dlam = dlam + g_lam.sum()
+        if not coef_grads:
+            continue
         for grads, out in ((g_s, dsrc), (g_d, ddst)):
             rows = torch.stack(grads, 2).flatten(2, 3)  # (N, J, 3 EM, tile)
             out.append(torch.einsum("njfr,jqr->njfq", rows, ej))
         dc = dc + g_c.sum((1, 3))
-        dloc = dloc + torch.stack([g.sum() for g in g_l])
-        dlam = dlam + g_lam.sum()
+    if not coef_grads:
+        return None, None, None, dloc, dlam
     return torch.cat(dsrc, 1), torch.cat(ddst, 1), dc, dloc, dlam
 
 
@@ -249,16 +261,57 @@ def _check(e, src, dst, c, loc, lam, t_out):
         raise ValueError(f"t_out {t_out} outside the {num_tiles} tiles")
 
 
+# the monomials check_monomials has passed, by (device, data pointer,
+# version, shape), each held so that its memory is not handed to another
+# tensor while it is a key
+_MONOMIALS: dict = {}
+
+
+def check_monomials(e):
+    """Raise ``ValueError`` unless the monomials ``e (num_tiles, 4 NS,
+    tile)`` are what the kernels take (those of
+    :func:`..resample.spline_tile_plan`): in each row at most one slot's
+    four terms nonzero, that slot's constant term among them, and the
+    slots of a tile's rows nondecreasing. (Kernel #7's full instance gives
+    NaN on other monomials, and the forward a wrong sum.)
+
+    The check runs once for each tensor (a few passes on its device and
+    one sync) and is kept by device, data pointer, version and shape, so
+    that a train step repeats none of it."""
+    key = (e.device, e.data_ptr(), e._version, tuple(e.shape))
+    if key in _MONOMIALS:
+        return
+    terms = e.detach().unflatten(1, (-1, 4)) != 0  # (J, NS, 4, tile)
+    used = terms.any(2)  # (J, NS, tile): the slots a row has terms in
+    held = terms[:, :, 3]  # the slots whose constant term a row holds
+    slot = torch.where(held.any(1), held.int().argmax(1), -1)  # (J, tile)
+    rising = (slot < 0) | (slot == torch.cummax(slot, 1).values)
+    fits = bool(((used.sum(1) <= 1) & (used == held).all(1) & rising).all())
+    if not fits:
+        raise ValueError(
+            "the spline radar kernels take the monomials of "
+            "spline_tile_plan: a row's terms in one slot, with its constant "
+            "term, and a tile's slots nondecreasing row by row")
+    _MONOMIALS[key] = e
+    if len(_MONOMIALS) > 8:
+        _MONOMIALS.pop(next(iter(_MONOMIALS)))
+
+
 
 def _forward_smem(ns4, em):
     return 4 * (2 * 3 * em * ns4 + 2 * em)
 
 
-def _backward_smem(ns4, tile, em):
-    n_out = 6 * ns4 + 1
-    parts = max(1, _THREADS // n_out)
-    return 4 * (2 * 3 * em * ns4 + (ns4 + 7) * (tile + 1)
-                + parts * n_out + 4 * _THREADS)
+def _backward_smem(ns4, tile, em, coef_grads):
+    """Bytes of csrc/radar_spline.cuh's BwdLayout: the staged
+    coefficients and rows, the threads' dloc/dlambda, and with
+    ``coef_grads`` the runs' coefficient sums (``nruns + NS - 1`` entries
+    of 24 EM), their dc sums and slot ranges."""
+    nruns = max(1, _BWD_THREADS // em)
+    floats = 2 * 3 * em * ns4 + 7 * tile + 4 * _BWD_THREADS
+    if coef_grads:
+        floats += (nruns + ns4 // 4 - 1) * 24 * em + nruns * em + 3 * nruns
+    return 4 * floats
 
 
 def _check_smem(nbytes):
@@ -275,6 +328,7 @@ def _forward(e, src, dst, c, loc, lam, t_out):
     if src.device.type == "cpu":
         return spline_radar_reference(e, src, dst, c, loc, lam, t_out)
     check_cuda("radar", e=e, src=src, dst=dst, c=c, loc=loc, lam=lam)
+    check_monomials(e)
     n, num_tiles, f3, ns4 = src.shape
     _check_smem(_forward_smem(ns4, f3 // 3))
     re = torch.empty((n, t_out), dtype=torch.float32, device=src.device)
@@ -290,49 +344,75 @@ def _forward(e, src, dst, c, loc, lam, t_out):
     return re, im
 
 
-def spline_radar_backward(e, src, dst, c, loc, lam, gre, gim, t_out: int):
+def spline_radar_backward(e, src, dst, c, loc, lam, gre, gim, t_out: int,
+                          coef_grads: bool = True):
     """Backward of :func:`spline_radar` through kernel #7: ``(dsrc, ddst,
     dc, dloc, dlam)`` as :func:`spline_radar_backward_reference` returns
-    them. A CPU tensor goes to that plain version; a CUDA tensor launches
-    the kernel (counted in ``spline_radar_backward.launches``) or raises.
-    The result is the same bit for bit from launch to launch."""
+    them; with ``coef_grads=False`` only ``dloc`` and ``dlam`` (the same
+    bits) and ``None`` for the others. A CPU tensor goes to that plain
+    version; a CUDA tensor launches the kernel's full instance (counted in
+    ``spline_radar_backward.launches``) or its loc/lambda instance
+    (``spline_radar_loc_lam_backward.launches``), or raises, also on
+    monomials ``e`` other than :func:`..resample.spline_tile_plan`'s
+    (:func:`check_monomials`). The result is the same bit for bit from
+    launch to launch."""
     _check(e, src, dst, c, loc, lam, t_out)
     out_shape = (src.shape[0], t_out)
     _check_tensors(src.device, gre=(gre, out_shape), gim=(gim, out_shape))
     if src.device.type == "cpu":
         return spline_radar_backward_reference(
-            e, src, dst, c, loc, lam, gre, gim, t_out
+            e, src, dst, c, loc, lam, gre, gim, t_out, coef_grads
         )
     check_cuda("radar", e=e, src=src, dst=dst, c=c, loc=loc, lam=lam, gre=gre,
                 gim=gim)
+    check_monomials(e)
     n, num_tiles, f3, ns4 = src.shape
     em, tile = f3 // 3, e.shape[2]
-    _check_smem(_backward_smem(ns4, tile, em))
+    _check_smem(_backward_smem(ns4, tile, em, coef_grads))
+    dloc = torch.empty_like(loc)
+    dlam = torch.empty_like(lam)
+    ws_s = torch.empty(n * num_tiles * 4, dtype=torch.float32,
+                       device=src.device)
+    inputs = (e.data_ptr(), src.data_ptr(), dst.data_ptr(), c.data_ptr(),
+              loc.data_ptr(), lam.data_ptr(), gre.data_ptr(), gim.data_ptr())
+    shape = (n, num_tiles, ns4, tile, em, t_out)
+    if not coef_grads:
+        launch(
+            kernel_function("radar_bwd.cu", "radar_bwd_loc_lam_f32", 11, 6),
+            "radar_bwd_loc_lam", src.device, *inputs, dloc.data_ptr(),
+            dlam.data_ptr(), ws_s.data_ptr(), *shape,
+        )
+        spline_radar_loc_lam_backward.launches += 1
+        return None, None, None, dloc, dlam
     dsrc = torch.empty_like(src)
     ddst = torch.empty_like(dst)
     dc = torch.empty_like(c)
-    dloc = torch.empty_like(loc)
-    dlam = torch.empty_like(lam)
     ws_dc = torch.empty(n * num_tiles * em, dtype=torch.float32,
                         device=src.device)
-    ws_s = torch.empty(n * num_tiles * 4, dtype=torch.float32,
-                       device=src.device)
     launch(
         kernel_function("radar_bwd.cu", "radar_bwd_f32", 15, 6),
-        "radar_bwd", src.device,
-        e.data_ptr(), src.data_ptr(), dst.data_ptr(), c.data_ptr(),
-        loc.data_ptr(), lam.data_ptr(), gre.data_ptr(), gim.data_ptr(),
+        "radar_bwd", src.device, *inputs,
         dsrc.data_ptr(), ddst.data_ptr(), dc.data_ptr(), dloc.data_ptr(),
-        dlam.data_ptr(), ws_dc.data_ptr(), ws_s.data_ptr(),
-        n, num_tiles, ns4, tile, em, t_out,
+        dlam.data_ptr(), ws_dc.data_ptr(), ws_s.data_ptr(), *shape,
     )
     spline_radar_backward.launches += 1
     return dsrc, ddst, dc, dloc, dlam
 
 
+def spline_radar_loc_lam_backward(e, src, dst, c, loc, lam, gre, gim,
+                                  t_out: int):
+    """``(dloc, dlam)``: :func:`spline_radar_backward` with
+    ``coef_grads=False``, whose launches of kernel #7's loc/lambda instance
+    are counted in ``spline_radar_loc_lam_backward.launches``."""
+    return spline_radar_backward(e, src, dst, c, loc, lam, gre, gim, t_out,
+                                 coef_grads=False)[3:]
+
+
 class SplineRadar(torch.autograd.Function):
     """Kernel #6 forward, kernel #7 backward; the monomials ``e`` get no
-    gradient (a constant, as in the JAX VJP)."""
+    gradient (a constant, as in the JAX VJP). Where none of ``src``,
+    ``dst`` and ``c`` needs a gradient, the backward takes kernel #7's
+    loc/lambda instance and gives them none."""
 
     @staticmethod
     def forward(ctx, e, src, dst, c, loc, lam, t_out):
@@ -345,7 +425,7 @@ class SplineRadar(torch.autograd.Function):
         e, src, dst, c, loc, lam = ctx.saved_tensors
         grads = spline_radar_backward(
             e, src, dst, c, loc, lam, gre.contiguous(), gim.contiguous(),
-            ctx.t_out,
+            ctx.t_out, any(ctx.needs_input_grad[1:4]),
         )
         return (None, *grads, None)
 
@@ -357,9 +437,11 @@ def spline_radar(e, src, dst, c, loc, lam, t_out: int):
 
     Same arguments and result as :func:`spline_radar_reference`. ``e``
     must be the one-hot monomials of :func:`..resample.spline_tile_plan`
-    (the kernels find each row's segment from them). CPU tensors go to the
-    plain versions; CUDA tensors launch kernel #6 (counted in
-    ``spline_radar.launches``) and, in the backward, kernel #7, or raise.
+    (the kernels find each row's segment from them; others raise). CPU
+    tensors go to the plain versions; CUDA tensors launch kernel #6
+    (counted in ``spline_radar.launches``) and, in the backward, kernel #7
+    (its loc/lambda instance where only ``loc`` and ``lam`` need a
+    gradient), or raise.
     """
     _check(e, src, dst, c, loc, lam, t_out)
     return SplineRadar.apply(e, src, dst, c, loc, lam, t_out)
@@ -367,6 +449,7 @@ def spline_radar(e, src, dst, c, loc, lam, t_out: int):
 
 spline_radar.launches = 0
 spline_radar_backward.launches = 0
+spline_radar_loc_lam_backward.launches = 0
 
 
 def bone_length_mean_sq_spline(bcoef, e, t_out: int):

@@ -1,9 +1,10 @@
 // The CUDA constructs of the f32 spatial graph-conv kernels
-// (sgcn_tile_f32.cuh) and the STFT kernels (stft_fft.cuh), emulated on the
-// CPU: a block's threads are std::threads, __syncthreads a barrier, dynamic
-// shared memory a static array, blockIdx and threadIdx thread-local.
-// Force-included (-include) before a kernels' header; see
-// tests/test_torch_sgcn_emulated.py and tests/test_torch_stft_emulated.py.
+// (sgcn_tile_f32.cuh), the STFT kernels (stft_fft.cuh) and the spline radar
+// kernels (radar_spline.cuh), emulated on the CPU: a block's threads are
+// std::threads, __syncthreads a barrier, dynamic shared memory a static
+// array, blockIdx and threadIdx thread-local. Force-included (-include)
+// before a kernels' header; see tests/test_torch_sgcn_emulated.py,
+// tests/test_torch_stft_emulated.py and tests/test_torch_radar_emulated.py.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -35,6 +36,7 @@ struct alignas(8) float2 {
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+inline float2 make_float2(float a, float b) { return {a, b}; }
 extern thread_local dim3 emu_threadIdx, emu_blockIdx;
 extern dim3 emu_gridDim;
 extern std::barrier<>* emu_bar;

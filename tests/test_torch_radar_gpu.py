@@ -96,6 +96,87 @@ def test_backward_kernel_repeats_bit_for_bit(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lam", [5e-4, 10.0])
+@pytest.mark.parametrize("t_in,up,tile", [(30, 20, 128), (30, 20, 256),
+                                          (300, 250, 512)])
+def test_loc_lambda_instance_matches_plain_version(cuda, t_in, up, tile,
+                                                   lam):
+    """#7's loc/lambda instance: dloc and dlambda alone, counted apart
+    from the full instance."""
+    args = kernel_inputs(2, t_in, up, lam, cuda, tile)
+    g = torch.randn(2, 2, t_in * up, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    full = radar.spline_radar_backward.launches
+    part = radar.spline_radar_loc_lam_backward.launches
+    got = radar.spline_radar_backward(*args[:6], g[0], g[1], args[6],
+                                      coef_grads=False)
+    torch.cuda.synchronize()
+    assert radar.spline_radar_backward.launches == full
+    assert radar.spline_radar_loc_lam_backward.launches == part + 1
+    assert got[:3] == (None, None, None)
+    want = radar.spline_radar_backward_reference(*args[:6], g[0], g[1],
+                                                 args[6], coef_grads=False)
+    for name, p, q in zip(("dloc", "dlam"), got[3:], want[3:]):
+        assert p.shape == q.shape, name
+        assert torch.isfinite(p).all(), name
+        assert _rel(p, q) <= TOL[lam][1], (name, _rel(p, q))
+
+
+@pytest.mark.gpu
+def test_loc_lambda_instance_repeats_the_full_ones_bits(cuda):
+    """Two launches of the loc/lambda instance agree exactly, and with the
+    full instance's dloc and dlambda: the same code, the same order."""
+    args = kernel_inputs(3, 300, 250, 5e-4, cuda)
+    g = torch.randn(2, 3, 75000, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    full = radar.spline_radar_backward(*args[:6], g[0], g[1], args[6])
+    first, second = (radar.spline_radar_backward(
+        *args[:6], g[0], g[1], args[6], coef_grads=False) for _ in range(2))
+    for i in (3, 4):
+        assert torch.equal(first[i], second[i])
+        assert torch.equal(first[i], full[i])
+
+
+@pytest.mark.gpu
+def test_spline_radar_takes_the_loc_lambda_instance(cuda):
+    """Joints without a gradient (the trainer's data), loc and lambda with
+    one: the backward launches the loc/lambda instance, not the full one."""
+    x = torch.randn(2, 3, 30, 25, 2, device=cuda).mul_(0.3)
+    loc = torch.tensor([0.1, -0.2, 0.3], device=cuda, requires_grad=True)
+    lam = torch.tensor(5e-4, device=cuda, requires_grad=True)
+    full = radar.spline_radar_backward.launches
+    part = radar.spline_radar_loc_lam_backward.launches
+    re, im = radar.radar_return_spline(x, 20, loc, lam, tile=128)
+    (re * re + im * im).sum().backward()
+    torch.cuda.synchronize()
+    assert radar.spline_radar_backward.launches == full
+    assert radar.spline_radar_loc_lam_backward.launches == part + 1
+    assert torch.isfinite(loc.grad).all() and torch.isfinite(lam.grad)
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_other_monomials(cuda):
+    """Monomials whose slots decrease (here each tile's rows reversed) are
+    refused before any launch: the kernels would sum them wrongly, the full
+    #7 into NaN."""
+    e, *rest, t_out = kernel_inputs(2, 30, 20, 5e-4, cuda, 128)
+    e = e.flip(2).contiguous()
+    g = torch.zeros(2, t_out, device=cuda)
+    counts = (radar.spline_radar.launches,
+              radar.spline_radar_backward.launches,
+              radar.spline_radar_loc_lam_backward.launches)
+    for call in (lambda: radar.spline_radar(e, *rest, t_out),
+                 lambda: radar.spline_radar_backward(e, *rest, g, g, t_out),
+                 lambda: radar.spline_radar_loc_lam_backward(e, *rest, g, g,
+                                                             t_out)):
+        with pytest.raises(ValueError, match="spline_tile_plan"):
+            call()
+    assert counts == (radar.spline_radar.launches,
+                      radar.spline_radar_backward.launches,
+                      radar.spline_radar_loc_lam_backward.launches)
+
+
+@pytest.mark.gpu
 def test_empty_bodies_give_finite_gradients(cuda):
     """All-zero bodies (c = 0, zero norms) take the guards of the
     backward: no NaN, where autograd through the plain forward has one."""
