@@ -125,6 +125,28 @@ so the exit code is not 0.
     unfrozen after epoch 0, then ``--resume`` for a third: the checkpoints,
     the resumed epoch, lambda frozen through epoch 0 and moving after,
     finite metrics, and launch counts equal to the prediction.
+13. ``eval_path``: the evaluation chain from raw files. Seeded synthetic
+    ``.skeleton`` files (``scripts/corpus_lib.py``: 60 classes x 2 clips,
+    camera 1 xview's val part and camera 2 its train part, and four
+    files of 2-4 bodies with empty frames from this script's writer) through
+    ``cli.data_gen.main`` (xview, the joint and bone streams as TFRecords,
+    2 shards): the artifacts' shapes, finite values, labels and camera
+    split, and its records/s on this host (the Python tokenizer). Then
+    seeded full-width checkpoints (ST-GCN for the joint and the bone
+    stream, 60 classes; the spectrogram model, 64 filters, 250 frames
+    padded), ``cli.evaluate.main`` on ST-GCN (val TFRecords) and on the
+    spectrogram model (``data_gen``'s ``.npy`` + ``.pkl``), each report
+    equal to the one recomputed from the model's probabilities (each after
+    an untimed warm-up run), the spectrogram run launching #6 and #10 once
+    a batch; the spectrogram model through the kernels against the plain
+    routes: the return and |S| + eps on data_gen's clips, the logits on
+    seeded normal clips; ``cli.ensemble.main`` over joint, bone and
+    spectrogram with unequal weights, its report equal to the one
+    recomputed from the streams' probabilities and its launches as
+    predicted; ``Predictor.from_checkpoint`` on the fused ST-GCN, 10
+    launches of #1 a request, its probabilities and logits against the
+    unfused predictor's. Clips/s of each evaluation, end to end and of the
+    forward alone.
 
 Then the kernels line (``sgcn_fwd`` ``ms``/``plain_ms``: f32 time of the
 ten spatial convs of one 64-clip request; ``sgcn_bwd`` and
@@ -171,10 +193,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from skeleton_action_recognition_tpu_torch.cli import main_gnn, main_spectrogram
-from skeleton_action_recognition_tpu_torch.data import tfrecord
+from scripts import corpus_lib
+from skeleton_action_recognition_tpu_torch.cli import (
+    data_gen,
+    ensemble,
+    evaluate,
+    main_gnn,
+    main_spectrogram,
+)
+from skeleton_action_recognition_tpu_torch.data import skeleton, tfrecord
 from skeleton_action_recognition_tpu_torch.data.pipeline import (
+    NumpyDataset,
     TFRecordDataset,
+    stream_transform,
 )
 from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     spatial_adjacency,
@@ -190,13 +221,19 @@ from skeleton_action_recognition_tpu_torch.ops import (
     stft,
     stft_logmag,
     tconv,
+    virtual_radar,
 )
 from skeleton_action_recognition_tpu_torch.serving import Predictor
 from skeleton_action_recognition_tpu_torch.train.optim import (
     TFSGD,
     RadarOptimizer,
 )
+from skeleton_action_recognition_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    restore_latest_for_eval,
+)
 from skeleton_action_recognition_tpu_torch.train.steps import (
+    make_eval_step,
     make_radar_train_step,
     make_train_step,
 )
@@ -292,6 +329,23 @@ RADAR_TOL = {5e-4: (2e-3, 1e-2), 10.0: (1e-4, 1e-4)}
 # version); torch.stft's magnitudes likewise.
 STFT_ATOL, STFT_GRAD_TOL, STFT_MAG_TOL = 5e-4, 2e-3, 1e-5
 SPEC_LR = 1e-4  # the JAX bench's Adam rate
+# the evaluation chain: corpus_lib's 60 classes x 2 clips (camera 1: xview
+# val, camera 2: train), evaluated in batches of 16 (the last one partial)
+EVAL_CLASSES, EVAL_CLIPS_PER_CLASS, EVAL_BATCH = 60, 2, 16
+ENSEMBLE = (("joint", 1.0), ("bone", 0.6), ("spectrogram", 0.3))
+# the spectrogram model's logits through the kernels against the plain
+# routes, max |diff| / max |plain|, on seeded normal clips (spec_clips):
+# the return at lambda = 5e-4 moves by up to ROUTE_TOL's 1e-2 of its scale,
+# log|S| amplifies that at the smallest bins, and the ResNet carries it to
+# the logits (the CPU tests' tolerance against the JAX model,
+# tests/test_torch_spectrogram.py). On data_gen's clips (smooth motion, a
+# clip tiled to 300 frames) most bins are near zero, where log(|S| + 1e-6)
+# is the routes' rounding: there the stages are held, the return at
+# ROUTE_TOL and |S| + eps at STFT_MAG_TOL, and the logits' distance printed.
+SPEC_LOGIT_TOL = 5e-3
+# the fused predictor's logits against the unfused one's, max |diff| / max
+# |unfused|: KERNEL_REL_TOL's f32 1e-5 a block, through ten blocks
+PREDICTOR_LOGIT_TOL = 1e-4
 # kernel #2's sums, |error| / sum |terms| per channel: against the f64 sums
 # of the kernel's own output, f32 sums of 1.9 M rows in other orders; against
 # the plain version's sums, the same in f32, and in bf16 up to two bf16 ulps
@@ -890,13 +944,13 @@ def phase_tconv_kernel(device):
     return {k: dtype_entries(tot) for k, tot in totals.items()}
 
 
-def seeded_model(name, fused, state=None, **options):
+def seeded_model(name, fused, state=None, seed=SEED, **options):
     """Full-width NTU-60 ST-GCN computing in ``name`` ("f32" or "bf16"),
     with the model's other ``options``. Without ``state``: CONV_INIT
-    weights from the seed, and BatchNorm affines, running statistics and
+    weights from ``seed``, and BatchNorm affines, running statistics and
     every bias redrawn from it, so that eval-mode BatchNorm and the bias
     paths do real work."""
-    g = torch.Generator().manual_seed(SEED)
+    g = torch.Generator().manual_seed(seed)
     model = Model(
         num_classes=60, dtype=torch.bfloat16 if name == "bf16" else None,
         fused_sgcn=fused, fused_sgcn_min_channels=0, generator=g, **options,
@@ -1967,6 +2021,339 @@ def phase_spec_cli(device):
     return launches
 
 
+def write_skeleton_file(path, frames):
+    """An NTU ``.skeleton`` file of ``frames``, a list of ``(bodies, 25,
+    3)`` arrays (``bodies`` may be 0)."""
+    lines = [str(len(frames))]
+    for bodies in frames:
+        lines.append(str(len(bodies)))
+        for b, joints in enumerate(bodies):
+            lines += [f"{1000 + b} 0 1 1 1 1 0 0.0 0.0 2", "25"]
+            lines += [f"{x:.5f} {y:.5f} {z:.5f} 0 0 0 0 0 0 0 0 2"
+                      for x, y, z in joints]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_multi_body_files(raw, rng):
+    """Four clips of 2-4 people (corpus_lib's skeletons, a metre apart),
+    two in each xview part: bodies that come and go, an empty first frame
+    and empty interior frames. Returns ``{name: people}``."""
+    specs = [  # camera, action, people, frames, empty frames
+        (1, 1, 3, 70, ()), (1, 2, 2, 64, (0, 20, 21)),
+        (2, 3, 4, 80, ()), (3, 4, 2, 75, (0, 1, 40)),
+    ]
+    written = {}
+    for camera, action, people, t, empty in specs:
+        clips = [corpus_lib.make_clip(action - 1, rng, t) + [k, 0.0, 0.0]
+                 for k in range(people)]
+        frames = []
+        for f in range(t):
+            # the last person steps out for the second half of the clip
+            n = 0 if f in empty else people - (f >= t // 2 and people > 2)
+            frames.append(np.stack([c[f] for c in clips[:n]])
+                          if n else np.zeros((0, 25, 3)))
+        name = f"S017C{camera:03d}P001R001A{action:03d}.skeleton"
+        write_skeleton_file(os.path.join(raw, name), frames)
+        written[name] = people
+    return written
+
+
+def check_data_gen(out, written):
+    """The xview artifacts: shapes, finite values, the labels and the
+    camera split, the TFRecords of both streams; returns ``{part: n}``."""
+    counts = {}
+    for part, cameras in (("train", (2, 3)), ("val", (1,))):
+        with open(os.path.join(out, f"{part}_label.pkl"), "rb") as f:
+            names, labels = pickle.load(f)
+        n = len(names)
+        counts[part] = n
+        check(n == EVAL_CLASSES + 2, f"{n} {part} clips")
+        for name, label in zip(names, labels):
+            _, camera, _, _, action = skeleton.sample_metadata(name)
+            check(camera in cameras and label == action - 1,
+                  f"{part} holds {name} as label {label}")
+        for stream in ("joint", "bone", "joint_motion", "bone_motion"):
+            arr = np.load(os.path.join(out, f"{part}_data_{stream}.npy"))
+            check(arr.shape == (n, 3, 300, 25, 2) and arr.dtype == np.float32
+                  and np.isfinite(arr).all(),
+                  f"{part} {stream}: {arr.shape} {arr.dtype}")
+        joint = np.load(os.path.join(out, f"{part}_data_joint.npy"))
+        for i, name in enumerate(names):
+            second = np.abs(joint[i, ..., 1]).sum() > 0
+            check(second == (name in written),
+                  f"{name}: second body present {second}")
+        for stream in ("joint", "bone"):
+            d = os.path.join(out, f"{part}_data_{stream}")
+            shards = sorted(os.listdir(d))
+            records = sum(tfrecord.count_records(os.path.join(d, p))
+                          for p in shards)
+            check(len(shards) == 2 and records == n,
+                  f"{part} {stream}: {records} records in {shards}")
+    return counts
+
+
+def reference_report(probs, labels):
+    """top-1 and top-5 of ``probs`` as the CLIs count them, and the clips
+    whose 1st/2nd or 5th/6th probabilities are equal (where the logits,
+    which the CLIs rank, may still order them)."""
+    ranked = -np.sort(-probs, axis=-1)
+    ties = int(((ranked[:, 0] == ranked[:, 1])
+                | (ranked[:, 4] == ranked[:, 5])).sum())
+    top5 = np.argsort(probs, axis=-1)[:, -5:]
+    n = max(len(labels), 1)
+    return {
+        "top1": round(int((probs.argmax(-1) == labels).sum()) / n, 4),
+        "top5": round(int((top5 == labels[:, None]).any(-1).sum()) / n, 4),
+    }, ties
+
+
+def check_report(label, report, want, ties, n):
+    """``report``'s top-1/top-5 equal ``want``'s, each by at most the tied
+    clips' share."""
+    for key in ("top1", "top5"):
+        check(abs(report[key] - want[key]) <= ties / n + 1e-4
+              and (ties or report[key] == want[key]),
+              f"{label} {key} {report[key]}, recomputed {want[key]} "
+              f"({ties} tied clips)")
+
+
+def restored(model, directory, device):
+    model.to(device)
+    check(restore_latest_for_eval(model, directory) == 0,
+          f"{directory}: not step 0")
+    return model.eval()
+
+
+def probabilities(model, batches, device):
+    """The softmax of ``model`` over ``batches`` (numpy ``(x, y)``), as
+    ``make_eval_step`` gives it, and the forward's clips/s (each batch
+    ending synchronized)."""
+    step = make_eval_step(model)
+    out, seconds = [], 0.0
+    for xb, _ in batches:
+        x = torch.from_numpy(xb).to(device)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        p = step(x)
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - start
+        out.append(p.cpu().numpy())
+    probs = np.concatenate(out)
+    return probs, len(probs) / seconds
+
+
+def spec_stage_errors(kernels, plain, x):
+    """max |diff| / max |plain| of the spectrogram model's stages through
+    the kernels (``kernels``) and the plain routes (``plain``) on clips
+    ``x``: the radar return (#6 against the dense route), |S| + eps (#10
+    against the plain STFT, both on #6's return) and the logits."""
+    vr = kernels.virtual_radar
+    re, im = radar.radar_return_spline(
+        x, SPEC_UP, vr.radar_loc, vr.radar_lambda, vr.edges,
+        sigma=vr.pad_sigma)
+    w = spectrogram._pad_operator(x.shape[2], SPEC_UP, vr.pad_sigma,
+                                  x.device)
+    re_p, im_p = virtual_radar.radar_return_upsampled(
+        x, w, vr.radar_loc, vr.radar_lambda, vr.edges)
+    mag = stft_logmag.stft_logmag(re, im, vr.hop_length, vr.stft_cos,
+                                  vr.stft_sin).exp()
+    mag_p = stft_logmag.stft_logmag_reference(
+        re, im, vr.hop_length, vr.stft_cos, vr.stft_sin).exp()
+    return {"return": max(rel_err(re, re_p), rel_err(im, im_p)),
+            "mag": rel_err(mag, mag_p),
+            "logits_data_gen": rel_err(kernels(x), plain(x))}
+
+
+def timed(fn):
+    start = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - start
+
+
+def phase_eval_path(device):
+    """Raw ``.skeleton`` files -> ``data_gen`` -> ``evaluate`` /
+    ``ensemble`` / ``Predictor.from_checkpoint`` on seeded checkpoints."""
+    rng = np.random.default_rng(SEED + 7)
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "raw")
+        corpus_lib.synthesize_corpus(raw, EVAL_CLIPS_PER_CLASS, seed=SEED,
+                                     num_classes=EVAL_CLASSES)
+        written = write_multi_body_files(raw, rng)
+        _, gen_s = timed(lambda: data_gen.main([
+            "--data-path", raw, "--out-folder", os.path.join(tmp, "ntu"),
+            "--ignored-sample-path", os.path.join(tmp, "none.txt"),
+            "--benchmarks", "xview", "--streams", "joint", "bone",
+            "--num-shards", "2",
+        ]))
+        out = os.path.join(tmp, "ntu", "xview")
+        counts = check_data_gen(out, written)
+        records = sum(counts.values())
+
+        ckpt = {name: os.path.join(tmp, "ckpt", name) for name, _ in ENSEMBLE}
+        for i, name in enumerate(("joint", "bone")):
+            CheckpointManager(ckpt[name]).save(
+                0, seeded_model("f32", False, seed=SEED + i))
+        CheckpointManager(ckpt["spectrogram"]).save(0, spectrogram.Model(
+            num_classes=60, num_pad_frames=SPEC_UP,
+            generator=torch.Generator().manual_seed(SEED)))
+        val = {
+            "tfrecord": os.path.join(out, "val_data_joint"),
+            "npy": os.path.join(out, "val_data_joint.npy"),
+            "pkl": os.path.join(out, "val_label.pkl"),
+        }
+        n = counts["val"]
+        batches = -(-n // EVAL_BATCH)
+        flags = ["--batch-size", str(EVAL_BATCH)]
+
+        gnn_argv = flags + ["--model", "stgcn", "--checkpoint", ckpt["joint"],
+                            "--test-data-path", val["tfrecord"]]
+        spec_argv = flags + [
+            "--model", "spectrogram", "--checkpoint", ckpt["spectrogram"],
+            "--data-path", val["npy"], "--label-path", val["pkl"]]
+        # warm-up: the kernels' build, cuDNN's plans, the spline plan
+        for argv in (gnn_argv, spec_argv):
+            evaluate.main(argv, device=device)
+
+        # the main paths: the counts cover exactly each run
+        reset_launches()
+        gnn_report, gnn_s = timed(lambda: evaluate.main(gnn_argv,
+                                                        device=device))
+        gnn_launches = read_launches(tuple(COUNTERS))
+        reset_launches()
+        spec_report, spec_s = timed(lambda: evaluate.main(spec_argv,
+                                                          device=device))
+        spec_launches = read_launches(tuple(COUNTERS))
+        weights = [str(w) for _, w in ENSEMBLE]
+        reset_launches()
+        ens_report, ens_s = timed(lambda: ensemble.main(flags + [
+            "--streams", *(s for s, _ in ENSEMBLE),
+            "--checkpoints", *(ckpt[s] for s, _ in ENSEMBLE),
+            "--weights", *weights, "--test-data-path", val["tfrecord"]],
+            device=device))
+        ens_launches = read_launches(tuple(COUNTERS))
+
+        # the reports, recomputed from each model's probabilities
+        tf_data = TFRecordDataset(val["tfrecord"], EVAL_BATCH)
+        labels = tf_data._load_all()[1]
+        probs, forward_rate = {}, {}
+        for name, _ in ENSEMBLE:
+            if name == "spectrogram":
+                model = spectrogram.Model(
+                    num_classes=60, num_pad_frames=SPEC_UP, use_pallas=True,
+                    use_pallas_stft=True)
+                data = NumpyDataset(val["npy"], val["pkl"], EVAL_BATCH)
+            else:
+                model = Model(num_classes=60)
+                data = TFRecordDataset(val["tfrecord"], EVAL_BATCH,
+                                       transform=stream_transform(name))
+            probs[name], forward_rate[name] = probabilities(
+                restored(model, ckpt[name], device), data.batches(), device)
+        ties = {}
+        for label, report, name in (("evaluate stgcn", gnn_report, "joint"),
+                                    ("evaluate spectrogram", spec_report,
+                                     "spectrogram")):
+            want, ties[label] = reference_report(probs[name], labels)
+            check(report["samples"] == n and report["checkpoint_step"] == 0,
+                  f"{label} report {report}")
+            check_report(label, report, want, ties[label], n)
+        combined = sum(w * probs[s] for s, w in ENSEMBLE)
+        want, ties["ensemble"] = reference_report(combined, labels)
+        check_report("ensemble", {"top1": ens_report["ensemble_top1"],
+                                  "top5": ens_report["ensemble_top5"]},
+                     want, ties["ensemble"], n)
+        for name, _ in ENSEMBLE:
+            top1 = round(float((probs[name].argmax(-1) == labels).mean()), 4)
+            check(ens_report[f"{name}_top1"] == top1,
+                  f"ensemble {name}_top1 {ens_report[f'{name}_top1']}, "
+                  f"recomputed {top1}")
+
+        # the spectrogram model through the kernels and the plain routes
+        kernels = restored(spectrogram.Model(
+            num_classes=60, num_pad_frames=SPEC_UP, use_pallas=True,
+            use_pallas_stft=True), ckpt["spectrogram"], device)
+        plain = restored(spectrogram.Model(
+            num_classes=60, num_pad_frames=SPEC_UP), ckpt["spectrogram"],
+            device)
+        spec_err = dict.fromkeys(("return", "mag", "logits_data_gen"), 0.0)
+        with torch.no_grad():
+            for xb, _ in NumpyDataset(val["npy"], val["pkl"],
+                                      EVAL_BATCH).batches():
+                x = torch.from_numpy(xb).to(device)
+                errs = spec_stage_errors(kernels, plain, x)
+                spec_err = {k: max(v, errs[k]) for k, v in spec_err.items()}
+            x = torch.from_numpy(spec_clips(EVAL_BATCH, SEED + 8)[0]).to(
+                device)
+            spec_err["logits"] = rel_err(kernels(x), plain(x))
+        del kernels, plain
+
+        # the fused predictor from the joint checkpoint, against the unfused
+        clips = np.load(val["npy"])
+        requests = {len(clips): clips, 7: clips[:7]}
+        fused = Predictor.from_checkpoint(
+            Model(num_classes=60, fused_sgcn=True, fused_sgcn_min_channels=0),
+            ckpt["joint"], 64, device)
+        unfused = Predictor.from_checkpoint(Model(num_classes=60),
+                                            ckpt["joint"], 64, device)
+        reset_launches()
+        served = {k: fused(x) for k, x in requests.items()}
+        pred_launches = read_launches(tuple(COUNTERS))
+        pred_err = max(float(np.abs(served[k] - unfused(x)).max())
+                       for k, x in requests.items())
+        # the probabilities of random full-width weights are near 0 or 1:
+        # the logits too, f32 sums in other orders through ten blocks
+        with torch.no_grad():
+            x = torch.from_numpy(clips).to(device)
+            pred_logit_err = rel_err(fused.model(x), unfused.model(x))
+        served_top1 = round(float(
+            (served[len(clips)].argmax(-1) == labels).mean()), 4)
+
+    none = dict.fromkeys(COUNTERS, 0)
+    predicted = {
+        "evaluate_stgcn": none,
+        "evaluate_spectrogram": {**none, "radar_fwd": batches,
+                                 "stft_fwd": batches},
+        "ensemble": {**none, "radar_fwd": batches, "stft_fwd": batches},
+        "predictor": {**none, "sgcn_fwd": 10 * len(requests)},
+    }
+    launches = {"evaluate_stgcn": gnn_launches,
+                "evaluate_spectrogram": spec_launches,
+                "ensemble": ens_launches, "predictor": pred_launches}
+    emit(
+        "eval_path", clips=counts, multi_body_files=written,
+        data_gen_s=gen_s, data_gen_records_per_s=records / gen_s,
+        host_cpu=host_cpu(), batch=EVAL_BATCH, batches=batches,
+        reports={"evaluate_stgcn": gnn_report,
+                 "evaluate_spectrogram": spec_report, "ensemble": ens_report},
+        tied_clips=ties, predictor_top1=served_top1,
+        eval_clips_per_s={"stgcn": n / gnn_s, "spectrogram": n / spec_s,
+                          "ensemble": n / ens_s},
+        forward_clips_per_s=forward_rate,
+        spec_rel_err=spec_err, spec_tol={
+            "return": ROUTE_TOL[5e-4], "mag": STFT_MAG_TOL,
+            "logits": SPEC_LOGIT_TOL},
+        predictor_prob_max_abs_err=pred_err, prob_atol=PROB_ATOL["f32"],
+        predictor_logit_rel_err=pred_logit_err,
+        predictor_logit_tol=PREDICTOR_LOGIT_TOL,
+        launches={k: {c: v for c, v in counts_.items() if v}
+                  for k, counts_ in launches.items()},
+        launches_predicted={k: {c: v for c, v in counts_.items() if v}
+                            for k, counts_ in predicted.items()},
+    )
+    check(launches == predicted,
+          f"eval path launched {launches}, predicted {predicted}")
+    check(spec_err["return"] <= ROUTE_TOL[5e-4]
+          and spec_err["mag"] <= STFT_MAG_TOL
+          and spec_err["logits"] <= SPEC_LOGIT_TOL,
+          f"spectrogram, kernels vs plain routes: {spec_err}")
+    check(pred_err <= PROB_ATOL["f32"]
+          and pred_logit_err <= PREDICTOR_LOGIT_TOL,
+          f"fused and unfused predictors differ by {pred_err} "
+          f"(logits {pred_logit_err})")
+    check(all(np.isfinite(p).all() for p in probs.values()),
+          "non-finite probabilities")
+
+
 def main():
     phase_env()
     device = torch.device("cuda", 0)
@@ -1994,6 +2381,7 @@ def main():
     del re, im
     phase_spec_train(device)
     spec_launches = phase_spec_cli(device)
+    phase_eval_path(device)
     # #7's entry counts both instances; the loc/lambda one's count beside
     loc_lam = spec_launches.pop("radar_bwd_loc_lam")
     spec_totals["radar_bwd"]["loc_lam_launches"] = loc_lam

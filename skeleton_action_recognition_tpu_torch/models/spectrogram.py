@@ -52,9 +52,12 @@ from skeleton_action_recognition_tpu_torch.ops.virtual_radar import (
 @functools.lru_cache(maxsize=8)
 def _nearest_index(size: int, out: int, device) -> torch.Tensor:
     """``floor(arange(out) * size / out)`` on ``device``, kept per shape (a
-    copy from the host on every call would wait for the device)."""
-    return torch.from_numpy(
-        np.floor(np.arange(out) * size / out).astype(np.int64)).to(device)
+    copy from the host on every call would wait for the device; a normal
+    tensor even under ``torch.inference_mode``, so that a training step
+    can save it)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            np.floor(np.arange(out) * size / out).astype(np.int64)).to(device)
 
 
 def nearest_resize_torch(x, out_h: int, out_w: int):
@@ -69,10 +72,12 @@ def nearest_resize_torch(x, out_h: int, out_w: int):
 @functools.lru_cache(maxsize=4)
 def _pad_operator(t_in: int, num_pad_frames: int, sigma: float, device):
     """The dense ``(t_in * num_pad_frames, t_in)`` smoothing-and-upsampling
-    operator on ``device``, kept per shape (a constant)."""
-    return torch.from_numpy(
-        pad_frames_operator(t_in, num_pad_frames, sigma)
-    ).to(device)
+    operator on ``device``, kept per shape (a constant, a normal tensor
+    even under ``torch.inference_mode``)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            pad_frames_operator(t_in, num_pad_frames, sigma)
+        ).to(device)
 
 
 class VirtualRadar(nn.Module):

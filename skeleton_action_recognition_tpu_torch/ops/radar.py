@@ -475,13 +475,17 @@ def _plan(t_in: int, num_pad_frames: int, tile: int, sigma: float,
           device: torch.device):
     """The spline plan's ``(coefficient operator, tile segments,
     monomials (num_tiles, ns4, tile))`` as tensors on ``device``, kept per
-    shape (constants: never written to)."""
+    shape (constants: never written to; normal tensors even when first
+    asked for under ``torch.inference_mode``, so that a training step can
+    save them)."""
     cc, tile_seg, ev = spline_tile_plan(t_in, num_pad_frames, tile, sigma)
-    return (
-        torch.from_numpy(cc).to(device),
-        torch.from_numpy(tile_seg.astype(np.int64)).to(device),
-        torch.from_numpy(np.ascontiguousarray(ev.swapaxes(1, 2))).to(device),
-    )
+    with torch.inference_mode(False):
+        return (
+            torch.from_numpy(cc).to(device),
+            torch.from_numpy(tile_seg.astype(np.int64)).to(device),
+            torch.from_numpy(np.ascontiguousarray(ev.swapaxes(1, 2))).to(
+                device),
+        )
 
 
 def gather_features(x, edges):

@@ -47,9 +47,11 @@ def stft_basis(
 def reflect_index(t: int, pad: int, device=None) -> torch.Tensor:
     """``numpy.pad(arange(t), pad, mode="reflect")`` on ``device``, kept
     per shape (a constant: a copy from the host on every call would wait
-    for the device)."""
-    return torch.from_numpy(np.pad(np.arange(t), pad, mode="reflect")).to(
-        device)
+    for the device; a normal tensor even under ``torch.inference_mode``,
+    so that a training step can save it)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            np.pad(np.arange(t), pad, mode="reflect")).to(device)
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:

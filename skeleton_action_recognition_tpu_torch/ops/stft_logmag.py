@@ -180,7 +180,8 @@ def twiddles(n_fft: int, device) -> torch.Tensor:
     float64 and rounded once; the kernels' inter-pass twiddles."""
     e = np.arange(n_fft) * (2 * np.pi / n_fft)
     table = np.stack([np.cos(e), np.sin(e)], 1).astype(np.float32)
-    return torch.from_numpy(table).to(device)
+    with torch.inference_mode(False):  # a constant kept across modes
+        return torch.from_numpy(table).to(device)
 
 
 def _plan(re, cos, hop, center):

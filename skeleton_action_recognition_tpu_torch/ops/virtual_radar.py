@@ -31,8 +31,9 @@ from skeleton_action_recognition_tpu_torch.ops.precision import einsum_f32
 
 @functools.lru_cache(maxsize=8)
 def _edge_index(edges: Tuple[Tuple[int, int], ...], device):
-    return tuple(torch.tensor([e[i] for e in edges], device=device)
-                 for i in (0, 1))
+    with torch.inference_mode(False):  # a constant a training step saves
+        return tuple(torch.tensor([e[i] for e in edges], device=device)
+                     for i in (0, 1))
 
 
 def gather_edges(x, edges):

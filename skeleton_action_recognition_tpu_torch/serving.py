@@ -1,7 +1,7 @@
 """Serving: a softmax predictor over a model in eval mode.
 
 Counterpart of ``skeleton_action_recognition_tpu/serving.py``'s unsharded,
-unfolded ``Predictor``.
+unfolded ``Predictor``, with its ``from_checkpoint``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import torch
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     resolve_device,
 )
+from skeleton_action_recognition_tpu_torch.train import checkpoint as ckpt_lib
 
 
 class Predictor:
@@ -23,6 +24,19 @@ class Predictor:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.max_batch = max_batch
+
+    @classmethod
+    def from_checkpoint(cls, model, checkpoint_dir: str, max_batch: int = 64,
+                        device="cuda") -> "Predictor":
+        """A predictor over ``model`` holding the parameters and BatchNorm
+        statistics of the latest checkpoint in ``checkpoint_dir``, as the
+        port's trainers write them; ``FileNotFoundError`` when there is
+        none. The JAX ``from_checkpoint`` also takes ``sample_input``,
+        which flax needs to initialize the model and a torch module does
+        not, and ``mesh``: serving over several devices is not ported."""
+        device = resolve_device(device)
+        ckpt_lib.restore_latest_for_eval(model, checkpoint_dir)
+        return cls(model, max_batch=max_batch, device=device)
 
     def __call__(self, x) -> np.ndarray:
         """Predict class probabilities for ``(n, 3, T, V, M)`` clips,

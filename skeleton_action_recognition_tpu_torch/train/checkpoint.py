@@ -102,3 +102,13 @@ class CheckpointManager:
         if step is not None:
             model.load_state_dict(self._load(step)["model"])
         return step
+
+
+def restore_latest_for_eval(model, directory: str) -> int:
+    """Load the parameters and statistics of the latest checkpoint in
+    ``directory`` into ``model``; returns its step. ``FileNotFoundError``
+    when there is none (the JAX evaluation CLIs' and predictor's error)."""
+    step = CheckpointManager(directory).restore_for_eval(model)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {directory}")
+    return step

@@ -51,6 +51,13 @@ def test_port_imports_with_jax_blocked():
         "import skeleton_action_recognition_tpu_torch.ops.stft_logmag\n"
         "import skeleton_action_recognition_tpu_torch.ops.virtual_radar\n"
         "import skeleton_action_recognition_tpu_torch.ops.precision\n"
+        "import skeleton_action_recognition_tpu_torch.data\n"
+        "import skeleton_action_recognition_tpu_torch.data.skeleton\n"
+        "import skeleton_action_recognition_tpu_torch.data.rotation\n"
+        "import skeleton_action_recognition_tpu_torch.data.preprocess\n"
+        "import skeleton_action_recognition_tpu_torch.cli.data_gen\n"
+        "import skeleton_action_recognition_tpu_torch.cli.evaluate\n"
+        "import skeleton_action_recognition_tpu_torch.cli.ensemble\n"
         "import chip_smoke\n"
     )
     proc = subprocess.run(
