@@ -147,6 +147,26 @@ so the exit code is not 0.
     launches of #1 a request, its probabilities and logits against the
     unfused predictor's. Clips/s of each evaluation, end to end and of the
     forward alone.
+14. ``zoo``: ST-GIN, ST-PGCN, ST-PGCN-P and the debug ST-GCN
+    (``experimental``), full-width NTU-60 (T=300), seeded weights with
+    BatchNorm statistics redrawn: a 64-clip ``Predictor`` request (rows
+    finite and summing to 1, median latency of 5) and 2 clips on the card
+    against the same weights on the CPU (eval and train-mode logits, TF32
+    off; ``zoo_serve``); 10 train steps after 3 warm-up, f32 with TF32 off
+    and bf16 for the two that take a dtype, remat off, B=128 if it fits,
+    else 64 or 32: step time, clips/s, peak memory, the loss finite and
+    falling, and a profile of 3 f32 steps (``zoo_train``); an
+    ``adjacency_matrix`` unchanged bit for bit by a step while frozen and
+    changed by one while training, ST-GIN's and the debug model's ten
+    (``zoo_adjacency``); ``cli.main_gnn.main --model stgin|stpgcnp`` for
+    one epoch on 48 + 16 synthetic clips and ``cli.evaluate.main`` on its
+    checkpoint, the report equal to the one recomputed from the logits of
+    ``Predictor.from_checkpoint``'s model, with at most a quarter of the
+    clips near a rank-1/2 or rank-5/6 tie (``zoo_cli``); the LSTM frame
+    sampler ``TemporalSampler((128,), top_k=200)`` on (16, 300, 25, 3),
+    the card against the CPU (``zoo_sampler``). No kernel of the port may
+    launch in the phase (``zoo``): none of these models reaches one, as
+    none of their JAX counterparts reaches ``pl.pallas_call``.
 
 Then the kernels line (``sgcn_fwd`` ``ms``/``plain_ms``: f32 time of the
 ten spatial convs of one 64-clip request; ``sgcn_bwd`` and
@@ -176,7 +196,9 @@ line.
 
 from __future__ import annotations
 
+import copy
 import ctypes
+import inspect
 import json
 import os
 import platform
@@ -210,8 +232,12 @@ from skeleton_action_recognition_tpu_torch.data.pipeline import (
 from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     spatial_adjacency,
 )
-from skeleton_action_recognition_tpu_torch.models import layers
-from skeleton_action_recognition_tpu_torch.models import spectrogram
+from skeleton_action_recognition_tpu_torch.models import (
+    layers,
+    lstm_sampler,
+    model_class,
+    spectrogram,
+)
 from skeleton_action_recognition_tpu_torch.models.stgcn import Model
 from skeleton_action_recognition_tpu_torch.ops import (
     build,
@@ -346,6 +372,42 @@ SPEC_LOGIT_TOL = 5e-3
 # the fused predictor's logits against the unfused one's, max |diff| / max
 # |unfused|: KERNEL_REL_TOL's f32 1e-5 a block, through ten blocks
 PREDICTOR_LOGIT_TOL = 1e-4
+# the GNN zoo (zoo phase): the models, those that take a dtype (trained in
+# bf16 too), those with an adjacency parameter to freeze, those driven
+# through the CLIs (the two trunks: ST-GCN's blocks with GIN convs, and the
+# projection-pool pyramid), and the frame sampler's shape
+ZOO = ("stgin", "stpgcn", "stpgcnp", "experimental")
+ZOO_BF16 = ("stgin", "stpgcn")
+ZOO_ADJACENCY = {"stgin": dict(trainable_adjacency=True), "experimental": {}}
+ZOO_CLI = ("stgin", "stpgcnp")
+# zoo_cli ranks the clips by their logits, as evaluate does: a clip whose
+# 1st/2nd or 5th/6th logits lie within this share of its largest |logit|
+# is a tie, which the two computations may order differently (the same
+# model on the same card and batches: equal up to the kernels' choice of
+# algorithm). The probabilities are no yardstick: after one epoch ST-GIN's
+# softmax puts exactly 0 on every class past the first few, so every clip
+# tied there. The check fails when more than ZOO_CLI_TIES of the clips tie
+ZOO_CLI_TIE_TOL = 1e-5
+ZOO_CLI_TIES = 0.25
+ZOO_SERVE_CLIPS, ZOO_SERVE_REPS, ZOO_COMPARE_CLIPS = 64, 5, 2
+# the learning rate of the zoo's training steps and CLI runs: the train
+# phase's 0.01, but 1e-3 for ST-PGCN-P, whose first gradient on pool_1's
+# variance is ~2e3 at this init: a step of 0.01 drives sigmoid(variance)
+# to where 1 / s^2 overflows, and the loss is NaN by the third step, in the
+# JAX model as in the port (the same losses on the CPU, B=2)
+ZOO_LR = {"stpgcnp": 1e-3}
+SAMPLER_HIDDEN, SAMPLER_TOP_K, SAMPLER_SHAPE = (128,), 200, (16, 300, 25, 3)
+# the card against the CPU on the same weights, f32 with TF32 off, max
+# |diff| / max |CPU| of the eval logits: f32 sums in other orders through
+# 8-10 blocks (moving the input by 1e-7 relative moves the logits by
+# 1.3e-7 to 2.7e-7 on the CPU). ST-PGCN-P's pools are ill-conditioned at
+# random eval-mode statistics: that 1e-7 moves its logits by 4.5e-4, so
+# its bound is 40x that, not the others' 400x
+ZOO_LOGIT_TOL = {"stgin": 1e-4, "stpgcn": 1e-4, "stpgcnp": 2e-2,
+                 "experimental": 1e-4}
+# the sampler's scores (LSTM outputs in (-1, 1)): f32, TF32 off, cuDNN's
+# LSTM against the CPU's over 300 steps
+SAMPLER_TOL = 1e-4
 # kernel #2's sums, |error| / sum |terms| per channel: against the f64 sums
 # of the kernel's own output, f32 sums of 1.9 M rows in other orders; against
 # the plain version's sums, the same in f32, and in bf16 up to two bf16 ulps
@@ -958,6 +1020,12 @@ def seeded_model(name, fused, state=None, seed=SEED, **options):
     if state is not None:
         model.load_state_dict(state)
         return model
+    return redraw_statistics(model, g)
+
+
+def redraw_statistics(model, g):
+    """``model`` with its BatchNorm affines and running statistics and
+    every bias redrawn from the generator ``g``."""
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, layers.BatchNorm):
@@ -1303,17 +1371,24 @@ def host_cpu():
             f"{len(os.sched_getaffinity(0))} cores")
 
 
+def write_cli_data(tmp, rng):
+    """``CLI_CLIPS`` seeded normal clips of 60 classes as TFRecords under
+    ``tmp``, 2 shards a part; returns ``{part: directory}``."""
+    dirs = {}
+    for part, n in CLI_CLIPS.items():
+        x = rng.normal(size=(n, 3, T, 25, 2)).astype(np.float32)
+        dirs[part] = os.path.join(tmp, part)
+        tfrecord.write_dataset(
+            x, rng.integers(0, 60, n), dirs[part], part, num_shards=2
+        )
+    return dirs
+
+
 def phase_cli(device):
     """The trainer CLI on synthetic TFRecords, then resumed."""
     rng = np.random.default_rng(SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        dirs = {}
-        for part, n in CLI_CLIPS.items():
-            x = rng.normal(size=(n, 3, T, 25, 2)).astype(np.float32)
-            dirs[part] = os.path.join(tmp, part)
-            tfrecord.write_dataset(
-                x, rng.integers(0, 60, n), dirs[part], part, num_shards=2
-            )
+        dirs = write_cli_data(tmp, rng)
         start = time.perf_counter()
         TFRecordDataset(dirs["train"], CLI_BATCH)._load_all()
         decode_s = time.perf_counter() - start
@@ -2093,17 +2168,19 @@ def check_data_gen(out, written):
     return counts
 
 
-def reference_report(probs, labels):
-    """top-1 and top-5 of ``probs`` as the CLIs count them, and the clips
-    whose 1st/2nd or 5th/6th probabilities are equal (where the logits,
-    which the CLIs rank, may still order them)."""
-    ranked = -np.sort(-probs, axis=-1)
-    ties = int(((ranked[:, 0] == ranked[:, 1])
-                | (ranked[:, 4] == ranked[:, 5])).sum())
-    top5 = np.argsort(probs, axis=-1)[:, -5:]
+def reference_report(scores, labels, tie_tol=0.0):
+    """top-1 and top-5 of ``scores`` (probabilities or logits) as the CLIs
+    count them, and the clips whose 1st/2nd or 5th/6th scores lie within
+    ``tie_tol`` of the row's largest |score| (by default: are equal, where
+    the logits, which the CLIs rank, may still order them)."""
+    ranked = -np.sort(-scores, axis=-1)
+    tol = tie_tol * np.abs(scores).max(-1)
+    ties = int(((ranked[:, 0] - ranked[:, 1] <= tol)
+                | (ranked[:, 4] - ranked[:, 5] <= tol)).sum())
+    top5 = np.argsort(scores, axis=-1)[:, -5:]
     n = max(len(labels), 1)
     return {
-        "top1": round(int((probs.argmax(-1) == labels).sum()) / n, 4),
+        "top1": round(int((scores.argmax(-1) == labels).sum()) / n, 4),
         "top5": round(int((top5 == labels[:, None]).any(-1).sum()) / n, 4),
     }, ties
 
@@ -2354,6 +2431,240 @@ def phase_eval_path(device):
           "non-finite probabilities")
 
 
+def zoo_model(name, seed=SEED, **options):
+    """Full-width NTU-60 ``models.<name>.Model`` with ``options``, CONV_INIT
+    weights from ``seed``, and BatchNorm affines, running statistics and
+    biases redrawn from it."""
+    g = torch.Generator().manual_seed(seed)
+    return redraw_statistics(
+        model_class(name)(num_classes=60, generator=g, **options), g)
+
+
+def zoo_serve(device, name, x):
+    """The 64-clip request through ``Predictor`` on the card (rows finite
+    and summing to 1, its median latency), and 2 clips on the card against
+    the same weights on the CPU, eval logits and train-mode logits."""
+    predictor = Predictor(zoo_model(name), ZOO_SERVE_CLIPS, device)
+    probs = predictor(x)  # warm-up: cuDNN's plans, the allocator
+    check(probs.shape == (len(x), 60) and np.isfinite(probs).all(),
+          f"{name}: probabilities of shape {probs.shape}, or not finite")
+    check(np.abs(probs.sum(-1) - 1.0).max() < 1e-5,
+          f"{name}: probability rows do not sum to 1")
+    times = []
+    for _ in range(ZOO_SERVE_REPS):
+        start = time.perf_counter()
+        predictor(x)
+        times.append(time.perf_counter() - start)
+    med = statistics.median(times)
+
+    cpu = zoo_model(name).eval()
+    clips = torch.from_numpy(x[:ZOO_COMPARE_CLIPS])
+    errors = {}
+    with torch.no_grad():
+        errors["eval"] = rel_err(predictor.model(clips.to(device)).cpu(),
+                                 cpu(clips))
+        # batch statistics in both (each a copy: the running ones stay)
+        card = copy.deepcopy(predictor.model).train()
+        errors["train"] = rel_err(card(clips.to(device)).cpu(),
+                                  copy.deepcopy(cpu).train()(clips))
+    del predictor, card
+    torch.cuda.empty_cache()
+    return {"latency_ms": 1e3 * med, "clips_per_s": len(x) / med,
+            "latency_min_ms": 1e3 * min(times),
+            "latency_max_ms": 1e3 * max(times),
+            "top_prob": float(probs.max(-1).mean()),
+            "card_vs_cpu_logit_rel_err": errors}
+
+
+def zoo_train(device, name, dtype, batch):
+    """``TRAIN_WARMUP`` and then ``TRAIN_STEPS`` timed train steps (each
+    ending synchronized) of the full-width model at ``batch`` on seeded
+    noise: step times, peak memory, the losses; in f32 also a profile of
+    ``PROFILE_STEPS`` more steps (device time by kernel, idle share)."""
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(
+        rng.normal(size=(batch, 3, T, 25, 2)).astype(np.float32)).to(device)
+    y = F.one_hot(torch.from_numpy(rng.integers(0, 60, batch)),
+                  60).float().to(device)
+    # remat off where the model takes it, as in the train phase
+    params = inspect.signature(model_class(name)).parameters
+    options = {"remat": False} if "remat" in params else {}
+    if dtype == "bf16":
+        options["dtype"] = torch.bfloat16
+    model = model_class(name)(
+        num_classes=60, device=device,
+        generator=torch.Generator().manual_seed(SEED), **options)
+    step = make_train_step(
+        model, TFSGD(model.parameters(), ZOO_LR.get(name, 0.01)), batch)
+    losses = [step(x, y, False)["loss"].item()
+              for _ in range(TRAIN_WARMUP)]
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        start = time.perf_counter()
+        losses.append(step(x, y, False)["loss"].item())
+        times.append(time.perf_counter() - start)
+    med = statistics.median(times)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    profile = device_profile(lambda: step(x, y, False)["loss"].item(),
+                             PROFILE_STEPS) if dtype == "f32" else None
+    return {"median_step_ms": 1e3 * med, "min_step_ms": 1e3 * min(times),
+            "max_step_ms": 1e3 * max(times), "clips_per_s": batch / med,
+            "peak_mem_mb": peak_mb, "loss_first": losses[0],
+            "loss_last": losses[-1], "losses": losses, "profile": profile}
+
+
+def adjacency_params(model):
+    return {k: p for k, p in model.named_parameters()
+            if "adjacency_matrix" in k}
+
+
+def zoo_freeze(device, name, options):
+    """One train step with the graph frozen leaves every
+    ``adjacency_matrix`` bit for bit as it was; one with it training
+    changes each."""
+    rng = np.random.default_rng(SEED + 10)
+    x = torch.from_numpy(
+        rng.normal(size=(4, 3, T, 25, 2)).astype(np.float32)).to(device)
+    y = F.one_hot(torch.from_numpy(rng.integers(0, 60, 4)),
+                  60).float().to(device)
+    model = model_class(name)(num_classes=60, device=device,
+                              generator=torch.Generator().manual_seed(SEED),
+                              **options)
+    step = make_train_step(model, TFSGD(model.parameters(), 0.01), 4)
+    before = {k: p.detach().clone() for k, p in adjacency_params(model).items()}
+    check(before, f"{name}: no adjacency_matrix parameter")
+    step(x, y, False)
+    frozen = all(torch.equal(p, before[k])
+                 for k, p in adjacency_params(model).items())
+    step(x, y, True)
+    moved = all(not torch.equal(p, before[k])
+                for k, p in adjacency_params(model).items())
+    check(frozen and moved, f"{name}: adjacency unchanged while frozen "
+          f"{frozen}, changed while training {moved}")
+    return {"params": len(before), "frozen_unchanged": frozen,
+            "trained_changed": moved}
+
+
+def zoo_cli(device, name, dirs, tmp):
+    """``main_gnn --model <name>`` for one epoch on the ``cli`` phase's
+    kind of data, then ``evaluate`` on its checkpoint: the report over the
+    validation clips, equal to the one recomputed from the logits of
+    ``Predictor.from_checkpoint``'s model, whose probability rows are
+    finite and sum to 1."""
+    log_dir = os.path.join(tmp, f"logs_{name}")
+    (history,), train_s = timed(lambda: main_gnn.main([
+        "--model", name, "--batch-size", str(CLI_BATCH), "--num-epochs",
+        "1", "--base-lr", str(ZOO_LR.get(name, 0.01)),
+        "--train-data-path", dirs["train"],
+        "--test-data-path", dirs["val"], "--log-dir", log_dir],
+        device=device))
+    tf32_off()  # main_gnn's default --precision turned it on
+    (run,) = os.listdir(log_dir)
+    ckpt = os.path.join(log_dir, run, "checkpoints")
+    report, eval_s = timed(lambda: evaluate.main([
+        "--model", name, "--checkpoint", ckpt, "--batch-size",
+        str(CLI_BATCH), "--test-data-path", dirs["val"]], device=device))
+    data = TFRecordDataset(dirs["val"], CLI_BATCH)
+    labels = data._load_all()[1]
+    predictor = Predictor.from_checkpoint(model_class(name)(num_classes=60),
+                                          ckpt, CLI_BATCH, device)
+    probs = np.concatenate([predictor(xb) for xb, _ in data.batches()])
+    with torch.inference_mode():
+        logits = np.concatenate([
+            predictor.model(torch.from_numpy(xb).to(device)).float().cpu()
+            .numpy() for xb, _ in data.batches()])
+    n = CLI_CLIPS["val"]
+    check(probs.shape == (n, 60) and np.isfinite(probs).all()
+          and np.abs(probs.sum(-1) - 1.0).max() < 1e-5,
+          f"{name}: predictor rows {probs.shape}, not finite or not 1")
+    check(logits.shape == (n, 60) and np.isfinite(logits).all(),
+          f"{name}: predictor logits {logits.shape} or not finite")
+    want, ties = reference_report(logits, labels, ZOO_CLI_TIE_TOL)
+    check(ties <= ZOO_CLI_TIES * n,
+          f"{name}: {ties} of {n} clips tie in their logits")
+    check(report["samples"] == n and report["checkpoint_step"] == 1,
+          f"{name} evaluate report {report}")
+    check_report(f"evaluate {name}", report, want, ties, n)
+    check(all(np.isfinite(v) for v in history.values()),
+          f"{name}: non-finite epoch metrics {history}")
+    return {"history": history, "train_s": train_s, "report": report,
+            "recomputed": want, "tied_clips": ties,
+            "eval_clips_per_s": n / eval_s}
+
+
+def zoo_sampler(device):
+    """``TemporalSampler((128,), top_k=200)`` on seeded (16, 300, 25, 3)
+    clips, the card against the CPU: the scores, the chosen frames, and
+    the output (each row's frames in frame order)."""
+    g = torch.Generator().manual_seed(SEED)
+    n, t, v, c = SAMPLER_SHAPE
+    cpu = lstm_sampler.TemporalSampler(v * c, SAMPLER_HIDDEN, SAMPLER_TOP_K,
+                                       generator=g)
+    card = copy.deepcopy(cpu).to(device)
+    x = torch.from_numpy(np.random.default_rng(SEED + 11).normal(
+        size=SAMPLER_SHAPE).astype(np.float32))
+    xd = x.to(device)
+    with torch.no_grad():
+        scores = (card.scores(xd).cpu(), cpu.scores(x))
+        outs = (card(xd).cpu(), cpu(x))
+        ms = cuda_ms(lambda: card(xd), iters=5, warmup=2)
+    picked = [torch.topk(sc, SAMPLER_TOP_K, dim=-1).indices for sc in scores]
+    same = all(set(a.tolist()) == set(b.tolist())
+               for a, b in zip(*picked))
+    check(same, "sampler: the card and the CPU chose other frames")
+    ordered = [torch.gather(o, 1, torch.argsort(i, dim=1)[:, :, None, None]
+                            .expand(o.shape)) for o, i in zip(outs, picked)]
+    err = {"scores": float((scores[0] - scores[1]).abs().max()),
+           "out": rel_err(*ordered)}
+    check(err["scores"] <= SAMPLER_TOL and err["out"] <= SAMPLER_TOL,
+          f"sampler, card vs CPU: {err}")
+    return {"shape": list(SAMPLER_SHAPE), "top_k": SAMPLER_TOP_K,
+            "forward_ms": ms, "card_vs_cpu": err, "tol": SAMPLER_TOL}
+
+
+def phase_zoo(device, x):
+    """ST-GIN, ST-PGCN, ST-PGCN-P and the debug ST-GCN at full width:
+    served, trained, their adjacency frozen and trained, through the CLIs,
+    and the frame sampler; none of them launches a kernel of the port."""
+    tf32_off()
+    reset_launches()
+    for name in ZOO:
+        emit("zoo_serve", model=name, batch=len(x), t=T,
+             **zoo_serve(device, name, x))
+    for name in ZOO:
+        for dtype in ("f32", "bf16") if name in ZOO_BF16 else ("f32",):
+            for batch in (TRAIN_BATCH, 64, 32):  # the largest that fits
+                try:
+                    record = zoo_train(device, name, dtype, batch)
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    emit("zoo_train", model=name, dtype=dtype, batch=batch,
+                         out_of_memory=True)
+                finally:
+                    torch.cuda.empty_cache()
+            else:
+                raise RuntimeError(f"{name} {dtype}: no batch fits")
+            emit("zoo_train", model=name, dtype=dtype, batch=batch, t=T,
+                 remat=False, steps=TRAIN_STEPS, **record)
+            loss = record["losses"]
+            check(all(np.isfinite(loss)), f"{name} {dtype}: non-finite loss")
+            check(np.mean(loss[-5:]) < np.mean(loss[:5]),
+                  f"{name} {dtype}: the loss did not fall: {loss}")
+    for name, options in ZOO_ADJACENCY.items():
+        emit("zoo_adjacency", model=name, **zoo_freeze(device, name, options))
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = write_cli_data(tmp, np.random.default_rng(SEED + 9))
+        for name in ZOO_CLI:
+            emit("zoo_cli", model=name, clips=CLI_CLIPS, batch=CLI_BATCH,
+                 **zoo_cli(device, name, dirs, tmp))
+    emit("zoo_sampler", **zoo_sampler(device))
+    launches = read_launches(tuple(COUNTERS))
+    emit("zoo", launches=launches)
+    check(not any(launches.values()),
+          f"the zoo launched kernels of the port: {launches}")
+
+
 def main():
     phase_env()
     device = torch.device("cuda", 0)
@@ -2382,6 +2693,7 @@ def main():
     phase_spec_train(device)
     spec_launches = phase_spec_cli(device)
     phase_eval_path(device)
+    phase_zoo(device, requests[64])
     # #7's entry counts both instances; the loc/lambda one's count beside
     loc_lam = spec_launches.pop("radar_bwd_loc_lam")
     spec_totals["radar_bwd"]["loc_lam_launches"] = loc_lam

@@ -18,8 +18,9 @@ trainer reads. Differences from the JAX CLI:
   (the VirtualRadar layer refuses it). The JAX CLI sets ``use_pallas``
   alone and leaves its STFT to XLA. A model without these options (ST-GCN)
   is the stock model, as in JAX;
-* only the models the port has load (``models.<name>.Model``); another
-  ``--model`` raises.
+* ``--model <name>`` loads ``models.<name>.Model`` (``stgcn``, ``stgin``,
+  ``stpgcn``, ``stpgcnp``, ``experimental``, ``spectrogram``); a name
+  without one raises ``ValueError``, listing the models there are.
 
 Run:
     python -m skeleton_action_recognition_tpu_torch.cli.evaluate \\
@@ -35,7 +36,6 @@ Run:
 from __future__ import annotations
 
 import argparse
-import importlib
 import inspect
 import json
 
@@ -47,6 +47,7 @@ from skeleton_action_recognition_tpu_torch.data.pipeline import (
     TFRecordDataset,
     stream_transform,
 )
+from skeleton_action_recognition_tpu_torch.models import model_class
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     prefetch_to_device,
     resolve_device,
@@ -81,26 +82,6 @@ def get_parser() -> argparse.ArgumentParser:
         choices=["stock", "folded", "int8"],
     )
     return parser
-
-
-def model_class(name: str):
-    """``Model`` of the port's ``models.<name>``; ``ValueError`` for a
-    model the port does not have yet."""
-    module_name = "skeleton_action_recognition_tpu_torch.models." + name
-    try:
-        module = importlib.import_module(module_name)
-    except ModuleNotFoundError as err:
-        if err.name != module_name:
-            raise
-        module = None
-    cls = getattr(module, "Model", None)
-    if cls is None:
-        raise ValueError(
-            f"--model {name!r} is not ported yet: 'stgcn' and "
-            "'spectrogram' are (the other GNN models are ROADMAP.md "
-            "Queue 1, item 15)"
-        )
-    return cls
 
 
 def is_spectrogram_family(cls) -> bool:

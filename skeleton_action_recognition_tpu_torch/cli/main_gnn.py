@@ -7,7 +7,12 @@ train-mode forward and backward with Keras-2 SGD on the piecewise schedule
 (10x decays at ``--steps`` epochs), an eval over the whole test set each
 epoch, TensorBoard scalars, checkpoints every ``--save-freq`` epochs and
 at the end, and ``--resume`` from the latest checkpoint of the same run
-directory. Only ``--model stgcn`` is ported.
+directory. ``--model <name>`` trains ``models.<name>.Model`` (``stgcn``,
+``stgin``, ``stpgcn``, ``stpgcnp``, ``experimental``), built with only the
+options its signature takes, as the JAX trainer passes only the fields its
+dataclass has: ``--dtype bfloat16``, ``--trainable-adjacency`` and
+``--fused-sgcn`` with its min-channels are dropped for a model without
+them.
 
 Run:
     python -m skeleton_action_recognition_tpu_torch.cli.main_gnn \\
@@ -17,6 +22,7 @@ Run:
 from __future__ import annotations
 
 import argparse
+import inspect
 import itertools
 import os
 import time
@@ -28,7 +34,7 @@ from skeleton_action_recognition_tpu_torch.data.pipeline import (
     TFRecordDataset,
     stream_transform,
 )
-from skeleton_action_recognition_tpu_torch.models import stgcn
+from skeleton_action_recognition_tpu_torch.models import model_class
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     prefetch_to_device,
     resolve_device,
@@ -151,16 +157,29 @@ def set_precision(precision: str) -> None:
     torch.backends.cudnn.allow_tf32 = allow
 
 
+def model_options(model_cls, arg) -> dict:
+    """The keyword arguments of ``model_cls`` that the flags set, among
+    those its signature takes (the JAX trainer's rule over dataclass
+    fields)."""
+    params = inspect.signature(model_cls).parameters
+    kwargs = {"num_classes": arg.num_classes}
+    if arg.dtype == "bfloat16" and "dtype" in params:
+        kwargs["dtype"] = torch.bfloat16
+    if arg.trainable_adjacency and "trainable_adjacency" in params:
+        kwargs["trainable_adjacency"] = True
+    if arg.fused_sgcn and "fused_sgcn" in params:
+        kwargs["fused_sgcn"] = True
+        if "fused_sgcn_min_channels" in params:
+            kwargs["fused_sgcn_min_channels"] = arg.fused_sgcn_min_channels
+    return kwargs
+
+
 def main(argv=None, *, device="cuda") -> list[dict]:
     """Train on ``device``; returns one dict per epoch run: its index, mean
     train loss, train and test accuracy, and train clips/s. Without a CUDA
     device, ``device="cuda"`` raises before anything is set up."""
     arg = get_parser().parse_args(argv)
-    if arg.model != "stgcn":
-        raise ValueError(
-            f"--model {arg.model!r} is not ported yet: only 'stgcn' is "
-            "(the other GNN models are ROADMAP.md Queue 1, item 15)"
-        )
+    model_cls = model_class(arg.model)
     device = resolve_device(device)
     set_precision(arg.precision)
     print(f"device: {device}")
@@ -168,17 +187,10 @@ def main(argv=None, *, device="cuda") -> list[dict]:
     log_dir = build_log_dir(arg)
     arg.log_dir = log_dir
     config_lib.save_arg(vars(arg), log_dir)
-    config_lib.snapshot_sources(log_dir, [stgcn.Model])
+    config_lib.snapshot_sources(log_dir, [model_cls])
 
-    model = stgcn.Model(
-        num_classes=arg.num_classes,
-        dtype=torch.bfloat16 if arg.dtype == "bfloat16" else None,
-        fused_sgcn=arg.fused_sgcn,
-        fused_sgcn_min_channels=(
-            arg.fused_sgcn_min_channels if arg.fused_sgcn else 0
-        ),
-        trainable_adjacency=arg.trainable_adjacency,
-        device=device,
+    model = model_cls(
+        **model_options(model_cls, arg), device=device,
         generator=torch.Generator().manual_seed(arg.seed),
     )
 

@@ -1,17 +1,23 @@
-"""NTU RGB+D 25-joint skeleton graph: the spatial-partition adjacency, the
-bone pairs and the VirtualRadar edge list.
+"""NTU RGB+D 25-joint skeleton graph: its labelings, the bone pairs and the
+VirtualRadar edge list.
 
-Counterpart of ``skeleton_action_recognition_tpu/graphs/ntu_rgb_d.py`` and
-``graphs/tools.py`` with the ``'spatial'`` labeling only, the one ST-GCN
-uses: ``(3, V, V)`` ``[I, norm(In), norm(Out)]`` with ``A[dst, src] = 1``
-per directed edge and each column divided by its in-degree.
+Counterpart of ``skeleton_action_recognition_tpu/graphs/ntu_rgb_d.py``:
+
+* ``'spatial'`` labeling: ``(3, V, V)`` ``[I, norm(In), norm(Out)]`` with
+  ``A[dst, src] = 1`` per directed edge and each column divided by its
+  in-degree (ST-GCN, ST-PGCN, ST-PGCN-P; ST-GIN takes its first two);
+* ``'GIN'`` labeling: the binary stack without the identity, ``(2, V, V)``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from skeleton_action_recognition_tpu_torch.graphs import tools
+
 NUM_JOINTS = 25
+
+SELF_LINK = [(i, i) for i in range(NUM_JOINTS)]
 
 # 1-indexed (child, parent) pairs toward the spine
 _INWARD_1INDEXED = [
@@ -22,6 +28,7 @@ _INWARD_1INDEXED = [
 ]
 INWARD = [(i - 1, j - 1) for (i, j) in _INWARD_1INDEXED]
 OUTWARD = [(j, i) for (i, j) in INWARD]
+NEIGHBOR = INWARD + OUTWARD
 
 # the 25 directed 1-indexed (joint, parent) pairs of the bone stream,
 # including the self-pair (21, 21), which gives a zero bone at the spine
@@ -42,16 +49,30 @@ RADAR_EDGES = [
 ]
 
 
-def _normalized(edges) -> np.ndarray:
-    a = np.zeros((NUM_JOINTS, NUM_JOINTS))
-    for i, j in edges:
-        a[j, i] = 1.0
-    degree = a.sum(axis=0)
-    return a / np.where(degree > 0, degree, 1.0)
+class Graph:
+    """NTU RGB+D skeleton graph; ``A`` is the adjacency stack of
+    ``labeling_mode`` (``'spatial'`` or ``'GIN'``) in float64."""
+
+    def __init__(self, labeling_mode: str = "spatial"):
+        self.num_node = NUM_JOINTS
+        self.self_link = SELF_LINK
+        self.inward = INWARD
+        self.outward = OUTWARD
+        self.neighbor = NEIGHBOR
+        self.A = self.get_adjacency_matrix(labeling_mode)
+
+    def get_adjacency_matrix(self, labeling_mode: str) -> np.ndarray:
+        if labeling_mode == "spatial":
+            return tools.get_spatial_graph(
+                NUM_JOINTS, SELF_LINK, INWARD, OUTWARD
+            )
+        if labeling_mode == "GIN":
+            return tools.get_spatial_graph(
+                NUM_JOINTS, SELF_LINK, INWARD, OUTWARD, normalize=False
+            )[1:]
+        raise ValueError(f"unknown labeling_mode: {labeling_mode!r}")
 
 
 def spatial_adjacency() -> np.ndarray:
     """The ``(3, 25, 25)`` float32 spatial-partition stack."""
-    return np.stack(
-        [np.eye(NUM_JOINTS), _normalized(INWARD), _normalized(OUTWARD)]
-    ).astype(np.float32)
+    return Graph("spatial").A.astype(np.float32)

@@ -1,5 +1,5 @@
-"""Shared building blocks: the conv initializer, Keras-semantics BatchNorm
-and the L2 penalty.
+"""Shared building blocks: the conv initializer, Keras-semantics BatchNorm,
+the pointwise MLP of the GIN layers and the L2 penalty.
 
 Counterpart of ``skeleton_action_recognition_tpu/models/layers.py``.
 Activations are channels-last ``(N, T, V, C)`` throughout the GNN stack.
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Sequence
 
 import torch
 import torch.nn as nn
@@ -27,6 +28,18 @@ def conv_init_(weight: torch.Tensor, generator=None) -> torch.Tensor:
     for a Linear or ``(out, in, kh, kw)`` for a Conv2d."""
     fan_out = weight.shape[0] * math.prod(weight.shape[2:])
     std = math.sqrt(2.0 / fan_out) / _TRUNCATED_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(
+            weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator
+        )
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator=None) -> torch.Tensor:
+    """flax's ``lecun_normal``: truncated-normal variance scaling, scale 1
+    over ``fan_in`` (the default kernel init of ``nn.Dense`` and of an LSTM
+    cell's input kernels)."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
     with torch.no_grad():
         return nn.init.trunc_normal_(
             weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator
@@ -108,6 +121,35 @@ class BatchNorm(nn.Module):
         return scale, self.bias - mean * scale
 
 
+class PointwiseMLP(nn.Module):
+    """1x1-conv MLP over the last axis: ``[Linear -> BN -> ReLU] x (n-1)
+    -> Linear [-> BN -> ReLU]``, the last BN and ReLU skipped with
+    ``return_logits``; the JAX package's ``PointwiseMLP``, with its children
+    ``Dense_i`` and ``BatchNorm_i``. Its output is float32 (the float32
+    parameters promote a bfloat16 input, as flax's ``Dense`` does)."""
+
+    def __init__(self, in_features: int, features: Sequence[int],
+                 return_logits: bool = False, generator=None):
+        super().__init__()
+        self.return_logits = return_logits
+        self.depth = len(features)
+        norms = len(features) - (1 if return_logits else 0)
+        for i, f in enumerate(features):
+            self.add_module(f"Dense_{i}", init_layer(
+                nn.Linear(in_features, f), generator))
+            if i < norms:
+                self.add_module(f"BatchNorm_{i}", BatchNorm(f))
+            in_features = f
+
+    def forward(self, x):
+        x = x.to(torch.promote_types(x.dtype, self.Dense_0.weight.dtype))
+        for i in range(self.depth):
+            x = getattr(self, f"Dense_{i}")(x)
+            if i < self.depth - 1 or not self.return_logits:
+                x = torch.relu(getattr(self, f"BatchNorm_{i}")(x))
+        return x
+
+
 @contextlib.contextmanager
 def frozen_stats(module: nn.Module, frozen: bool = True):
     """Within the block, the :class:`BatchNorm` layers under ``module`` do
@@ -130,12 +172,19 @@ def frozen_stats(module: nn.Module, frozen: bool = True):
 
 def l2_regularization(model: nn.Module, weight: float = L2_WEIGHT):
     """Keras-style L2 penalty ``weight * sum(w ** 2)`` (no 1/2) over the
-    weights of every ``nn.Linear`` and ``nn.Conv2d`` under ``model``: the
-    JAX package's ``kernel`` leaves. BatchNorm scales (also named
-    ``weight`` here), biases and the adjacency carry no penalty, so the
-    selection is by module type, not by parameter name."""
+    weights of every ``nn.Linear`` and ``nn.Conv2d`` and the input and
+    recurrent weights of every ``nn.LSTM`` under ``model``: the JAX
+    package's ``kernel`` leaves. BatchNorm scales (also named ``weight``
+    here), biases and the plain parameters (the adjacency, ``epsilon``,
+    the projection centers and variances, GPool's projection vector)
+    carry no penalty, so the selection is by module type, not by parameter
+    name."""
     total = 0.0
     for module in model.modules():
         if isinstance(module, (nn.Linear, nn.Conv2d)):
             total = total + module.weight.square().sum()
+        elif isinstance(module, nn.LSTM):
+            for name, p in module.named_parameters():
+                if name.startswith("weight_"):
+                    total = total + p.square().sum()
     return weight * total

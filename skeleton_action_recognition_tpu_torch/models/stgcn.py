@@ -205,19 +205,27 @@ class StatsTemporalConv(nn.Module):
 
 class STConvBlock(nn.Module):
     """Spatial conv + temporal conv + residual. The residual is absent
-    (``residual=False``), the identity when channels and stride match, and
-    otherwise a strided 1x1 conv + BN.
+    (``residual=False``), the identity when the block's input channels and
+    stride match its output, and otherwise a strided 1x1 conv + BN.
+
+    ``sgcn_factory(in_channels, filters, generator)`` builds the spatial
+    module (the JAX block's ``sgcn_factory``; ST-GIN's
+    :class:`..gcn.GraphIsoConvTD`); by default it is
+    :class:`..gcn.GraphConvTD` with the block's ``dtype`` and fused
+    options. The temporal conv takes the spatial module's
+    ``out_channels``, which for ST-GIN is half the block's width.
 
     The temporal chain, as the JAX block routes it: with ``sgcn_stats`` and
-    a fused spatial conv, :class:`StatsTemporalConv` (at either stride; it
-    takes precedence over ``fused_tconv``); else with ``fused_tconv`` at
-    stride 1, :class:`FusedTemporalConv`; else :class:`TemporalConv`."""
+    a fused default spatial conv, :class:`StatsTemporalConv` (at either
+    stride; it takes precedence over ``fused_tconv``); else with
+    ``fused_tconv`` at stride 1, :class:`FusedTemporalConv`; else
+    :class:`TemporalConv`."""
 
     def __init__(
         self, in_channels: int, filters: int, stride: int = 1,
         residual: bool = True, dtype=None, fused_sgcn: bool = False,
         fused_tconv: bool = False, sgcn_stats: bool = False,
-        generator=None,
+        sgcn_factory=None, generator=None,
     ):
         super().__init__()
         self.dtype = dtype
@@ -230,23 +238,27 @@ class STConvBlock(nn.Module):
                 in_channels, filters, 1, stride, generator
             )
             self.residual_bn = BatchNorm(filters, dtype)
-        self.use_stats = sgcn_stats and fused_sgcn
-        self.sgcn = GraphConvTD(
-            in_channels, filters, dtype=dtype, fused=fused_sgcn,
-            emit_stats=self.use_stats, generator=generator,
-        )
+        self.use_stats = sgcn_stats and fused_sgcn and sgcn_factory is None
+        if sgcn_factory is None:
+            self.sgcn = GraphConvTD(
+                in_channels, filters, dtype=dtype, fused=fused_sgcn,
+                emit_stats=self.use_stats, generator=generator,
+            )
+        else:
+            self.sgcn = sgcn_factory(in_channels, filters, generator)
+        spatial = self.sgcn.out_channels
         if self.use_stats:
             self.tgcn = StatsTemporalConv(
-                filters, filters, stride=stride, dtype=dtype,
+                spatial, filters, stride=stride, dtype=dtype,
                 generator=generator,
             )
         elif fused_tconv and stride == 1:
             self.tgcn = FusedTemporalConv(
-                filters, filters, dtype=dtype, generator=generator,
+                spatial, filters, dtype=dtype, generator=generator,
             )
         else:
             self.tgcn = TemporalConv(
-                filters, filters, stride=stride, dtype=dtype,
+                spatial, filters, stride=stride, dtype=dtype,
                 generator=generator,
             )
 
@@ -287,6 +299,25 @@ def reshape_skeleton_input(x):
     return x.reshape(n * m, t, v, c), n, m
 
 
+def register_adjacency(module: nn.Module, a, trainable: bool) -> None:
+    """Give ``module`` the float32 numpy stack ``a`` as its adjacency: the
+    parameter ``adjacency_matrix`` (the flax ``params['adjacency_matrix']``,
+    which the trainer's freeze looks for) when ``trainable``, else a
+    constant buffer, which is not in the state dict, as it is not among the
+    JAX model's params."""
+    a = torch.from_numpy(a)
+    if trainable:
+        module.adjacency_matrix = nn.Parameter(a)
+    else:
+        module.register_buffer("adjacency", a, persistent=False)
+
+
+def adjacency(module: nn.Module):
+    """The adjacency :func:`register_adjacency` gave ``module``."""
+    a = getattr(module, "adjacency_matrix", None)
+    return module.adjacency if a is None else a
+
+
 def remat_block(block: nn.Module, x, a):
     """``block(x, a)`` under ``torch.utils.checkpoint``: its activations are
     dropped after the forward and recomputed in the backward (flax
@@ -303,19 +334,27 @@ def remat_block(block: nn.Module, x, a):
 
 
 class STGCNBackbone(nn.Module):
-    """data-BN + the 10 blocks of ``BLOCK_PLAN`` + pooling/logits head.
-    With ``remat``, each block is rematerialized when gradients are
-    taken. ``sgcn_stats`` applies to the blocks whose spatial conv is
-    fused; ``fused_tconv`` to the stride-1 blocks."""
+    """data-BN + the 10 blocks of ``BLOCK_PLAN`` + pooling/logits head, shared
+    by the ST-GCN family: ``sgcn_factory`` builds each block's spatial
+    module (see :class:`STConvBlock`), and ``extra_block_factory(
+    in_channels, generator)`` returns ``(name, module)``, a module run as
+    ``x = module(x, a)`` after block ``extra_block_index`` and registered
+    under ``name`` (ST-PGCN's ``projection``). With ``remat``, each
+    :class:`STConvBlock`, and not the extra block, is rematerialized when
+    gradients are taken, as in JAX. ``sgcn_stats`` applies to the blocks
+    whose spatial conv is fused; ``fused_tconv`` to the stride-1 blocks."""
 
     def __init__(
         self, num_classes: int = 60, dtype=None, fused_sgcn: bool = False,
         fused_sgcn_min_channels: int = 0, remat: bool = True,
         fused_tconv: bool = False, sgcn_stats: bool = False,
-        generator=None,
+        sgcn_factory=None, extra_block_index=-1,
+        extra_block_factory=None, generator=None,
     ):
         super().__init__()
         self.remat = remat
+        self.extra_block_index = extra_block_index
+        self.extra_block_name = None
         self.data_bn = DataBatchNorm(NUM_JOINTS * IN_CHANNELS, dtype)
         c = IN_CHANNELS
         for i, (filters, stride, residual) in enumerate(BLOCK_PLAN):
@@ -323,9 +362,13 @@ class STGCNBackbone(nn.Module):
                 c, filters, stride=stride, residual=residual, dtype=dtype,
                 fused_sgcn=fused_sgcn and filters >= fused_sgcn_min_channels,
                 fused_tconv=fused_tconv, sgcn_stats=sgcn_stats,
-                generator=generator,
+                sgcn_factory=sgcn_factory, generator=generator,
             ))
             c = filters
+            if i == extra_block_index and extra_block_factory is not None:
+                self.extra_block_name, extra = extra_block_factory(
+                    c, generator)
+                self.add_module(self.extra_block_name, extra)
         self.logits = init_layer(nn.Linear(c, num_classes), generator)
 
     def forward(self, x, a):
@@ -335,6 +378,8 @@ class STGCNBackbone(nn.Module):
         for i in range(len(BLOCK_PLAN)):
             block = getattr(self, f"block_{i}")
             x = remat_block(block, x, a) if remat else block(x, a)
+            if i == self.extra_block_index and self.extra_block_name:
+                x = getattr(self, self.extra_block_name)(x, a)
         # pool in f32: a bf16 sum over T*V ~ 7.5k terms loses mantissa
         x = x.float().mean(dim=(1, 2))
         x = x.reshape(n, m, -1).mean(dim=1)  # mean over bodies
@@ -378,15 +423,8 @@ class Model(nn.Module):
             fused_tconv=fused_tconv, sgcn_stats=sgcn_stats,
             generator=generator,
         )
-        a = torch.from_numpy(spatial_adjacency())
-        if trainable_adjacency:
-            self.adjacency_matrix = nn.Parameter(a)
-        else:
-            # a constant: not in the state dict, as it is not among the JAX
-            # model's params
-            self.register_buffer("adjacency", a, persistent=False)
+        register_adjacency(self, spatial_adjacency(), trainable_adjacency)
         self.to(device)
 
     def forward(self, x):
-        a = getattr(self, "adjacency_matrix", None)
-        return self.backbone(x, self.adjacency if a is None else a)
+        return self.backbone(x, adjacency(self))

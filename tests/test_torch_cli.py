@@ -40,9 +40,13 @@ def test_run_name_matches_the_jax_trainer():
 
 
 def test_other_models_are_refused(tmp_path):
-    with pytest.raises(ValueError, match="item 15"):
-        main_gnn.main(["--model", "stgin", "--log-dir", str(tmp_path)],
+    """A name with no ``models.<name>.Model`` raises before anything is set
+    up, listing the models there are."""
+    with pytest.raises(ValueError, match="names no model: the models are "
+                       "experimental, .*stgcn, stgin, stpgcn, stpgcnp"):
+        main_gnn.main(["--model", "nosuch", "--log-dir", str(tmp_path)],
                       device="cpu")
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("precision,tf32", [

@@ -223,8 +223,10 @@ def test_spectrogram_model_runs_the_kernel_routes(monkeypatch):
     (["--test-data-path", "d", "--data-path", "x.npy", "--label-path",
       "y.pkl"], SystemExit, "exactly one of"),
     (["--data-path", "x.npy"], SystemExit, "requires --label-path"),
-    (["--test-data-path", "d", "--model", "stgin"], ValueError, "item 15"),
-    (["--test-data-path", "d", "--model", "gcn"], ValueError, "item 15"),
+    (["--test-data-path", "d", "--model", "nosuch"], ValueError,
+     "'nosuch' names no model: the models are experimental"),
+    (["--test-data-path", "d", "--model", "gcn"], ValueError,
+     "'gcn' names no model: .*stgcn, stgin, stpgcn, stpgcnp"),
     (["--test-data-path", "d", "--predictor", "folded"], ValueError,
      "item 16b"),
     (["--test-data-path", "d", "--predictor", "int8"], ValueError,

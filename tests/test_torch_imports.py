@@ -58,6 +58,19 @@ def test_port_imports_with_jax_blocked():
         "import skeleton_action_recognition_tpu_torch.cli.data_gen\n"
         "import skeleton_action_recognition_tpu_torch.cli.evaluate\n"
         "import skeleton_action_recognition_tpu_torch.cli.ensemble\n"
+        "import skeleton_action_recognition_tpu_torch.graphs\n"
+        "import skeleton_action_recognition_tpu_torch.graphs.tools\n"
+        "import skeleton_action_recognition_tpu_torch.ops.graph\n"
+        "import skeleton_action_recognition_tpu_torch.models.projection\n"
+        "import skeleton_action_recognition_tpu_torch.models.stgin\n"
+        "import skeleton_action_recognition_tpu_torch.models.stpgcn\n"
+        "import skeleton_action_recognition_tpu_torch.models.stpgcnp\n"
+        "import skeleton_action_recognition_tpu_torch.models.experimental\n"
+        "import skeleton_action_recognition_tpu_torch.models.lstm_sampler\n"
+        "from skeleton_action_recognition_tpu_torch.models import (\n"
+        "    model_names)\n"
+        "assert {'stgcn', 'stgin', 'stpgcn', 'stpgcnp', 'experimental',\n"
+        "        'spectrogram'} <= set(model_names())\n"
         "import chip_smoke\n"
     )
     proc = subprocess.run(

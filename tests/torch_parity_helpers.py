@@ -17,9 +17,15 @@ def randomized_variables(model, x, seed):
     every BatchNorm scale, running mean and running variance and every
     bias, so that eval-mode BatchNorm and the bias paths do real work.
     Returns the variables as nested dicts of numpy arrays."""
-    variables = jax.device_get(
+    return redrawn(jax.device_get(
         model.init(jax.random.key(0), jnp.asarray(x[:1]))
-    )
+    ), seed)
+
+
+def redrawn(variables, seed):
+    """``variables`` with every BatchNorm scale, running mean and running
+    variance and every bias redrawn from ``seed``, as
+    :func:`randomized_variables` does."""
     rng = np.random.default_rng(seed)
 
     def redraw(path, leaf):
@@ -31,3 +37,99 @@ def randomized_variables(model, x, seed):
         return np.asarray(leaf, np.float32)
 
     return jax.tree_util.tree_map_with_path(redraw, variables)
+
+
+def cotangent(shape, seed):
+    """A seeded normal cotangent of ``shape``, float32."""
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def layer_parity(flax_module, port, variables, inputs, train, seed=0,
+                 pick=lambda out: out):
+    """Run ``flax_module.apply(variables, *inputs, train)`` and the port's
+    module ``port(*inputs)`` (its state loaded from ``variables`` through
+    the bridge) on the numpy ``inputs``, and take both gradients of
+    ``sum(pick(out) * ct)`` for one seeded cotangent ``ct``.
+
+    Returns a dict of ``(jax, port)`` numpy pairs: ``out``, ``inputs`` (the
+    inputs' gradients), and dicts keyed by the port's state-dict names:
+    ``params`` (the parameters' gradients) and, in training,
+    ``batch_stats`` (the running statistics after the call)."""
+    from skeleton_action_recognition_tpu_torch import interop
+
+    mutable = ["batch_stats"] if train else False
+    shape = jax.eval_shape(
+        lambda: pick(_unpack(flax_module.apply(
+            variables, *map(jnp.asarray, inputs), train, mutable=mutable),
+            train)[0]))
+    ct = cotangent(shape.shape, seed)
+
+    def loss(params, *xs):
+        out, stats = _unpack(flax_module.apply(
+            {**variables, "params": params}, *xs, train, mutable=mutable),
+            train)
+        return jnp.sum(pick(out).astype(jnp.float32) * ct), (out, stats)
+
+    (_, (jax_out, jax_stats)), jax_grads = jax.jit(jax.value_and_grad(
+        loss, argnums=tuple(range(1 + len(inputs))), has_aux=True
+    ))(variables["params"], *map(jnp.asarray, inputs))
+
+    port.load_state_dict(interop.flax_to_state_dict(variables))
+    port.train(train)
+    xs = [torch.tensor(x, requires_grad=True) for x in inputs]
+    out = port(*xs)
+    (pick(out).float() * torch.from_numpy(ct)).sum().backward()
+
+    def numpy_tree(tree):
+        return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
+
+    want = interop.flax_to_state_dict({"params": numpy_tree(jax_grads[0])})
+    result = {
+        "out": (np.asarray(pick(jax_out), np.float32),
+                pick(out).detach().float().numpy()),
+        # an input the module does not use has no gradient: zeros in JAX
+        "inputs": [(np.asarray(g), np.zeros_like(g) if x.grad is None
+                    else x.grad.numpy())
+                   for g, x in zip(jax_grads[1:], xs)],
+        "params": {name: (want[name].numpy(), np.zeros(p.shape, np.float32)
+                          if p.grad is None else p.grad.numpy())
+                   for name, p in port.named_parameters()},
+    }
+    assert set(want) == set(result["params"])
+    if train:
+        stats = interop.flax_to_state_dict(
+            {"batch_stats": numpy_tree(jax_stats.get("batch_stats", {}))})
+        got = port.state_dict()
+        result["batch_stats"] = {
+            name: (w.numpy(), got[name].numpy()) for name, w in stats.items()
+        }
+    return result
+
+
+def _unpack(applied, train):
+    return applied if train else (applied, {})
+
+
+def assert_parity(result, out_tol, grad_tol, stats_tol=1e-5):
+    """``result`` of :func:`layer_parity` within absolute tolerances, each
+    relative to the largest magnitude of the JAX side it bounds. A
+    parameter's gradient is held relative to at least a tenth of the
+    largest parameter gradient: a bias followed by a training-mode
+    BatchNorm has a gradient that the normalization cancels, rounding
+    noise of ~1e-7 of the largest gradient in both frameworks."""
+    def close(pair, tol, what, floor=1e-30):
+        want, got = pair
+        assert got.shape == want.shape, what
+        scale = max(float(np.abs(want).max()), floor)
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol * scale,
+                                   err_msg=what)
+
+    close(result["out"], out_tol, "out")
+    for i, pair in enumerate(result["inputs"]):
+        close(pair, grad_tol, f"input {i} gradient")
+    floor = 0.1 * max(float(np.abs(w).max())
+                       for w, _ in result["params"].values())
+    for name, pair in result["params"].items():
+        close(pair, grad_tol, f"{name} gradient", floor)
+    for name, pair in result.get("batch_stats", {}).items():
+        close(pair, stats_tol, name)
