@@ -45,8 +45,26 @@ so the exit code is not 0.
    answer the 64-clip request as the fused-only model, through the same
    ten launches.
 6. ``latency``: the 64-clip request, fused and unfused, in f32 and bf16,
-   timed in turns on the host clock (the predictor returns numpy, so each
-   request ends synchronized).
+   and through the four folded predictors (``models/export.py``: f32 with
+   TF32 off, bf16, W8, W8A8), timed in turns on the host clock (the
+   predictor returns numpy, so each request ends synchronized); peak
+   memory as one predictor's own (its resident tensors plus the request's
+   peak above what was allocated before it).
+   ``export``: those four folded predictors, folded from the slice's
+   weights (each build's host time, the weights' device bytes), on the 1-,
+   7- and 64-clip requests: the logits against the stock f32 predictor's
+   and, at 1 and 7 clips, against the same route and weights on the CPU,
+   max |diff| / max |reference| within ``FOLDED_TOL`` /
+   ``FOLDED_CPU_TOL`` and the argmax the same wherever the reference's
+   two largest lie further apart than twice that; 10 ``torch._int_mm``
+   calls a W8A8 request and none elsewhere; no launch of any kernel of the
+   port. Then the f32 route with TF32 on and off in turns (medians), the
+   bf16 product through ``torch.mm(out_dtype=float32)`` and as a bf16
+   product read back in f32 at the ten blocks' shapes (error against the
+   f32 product of the same operands, CUDA-event times), and
+   ``export.int8_product`` at padded shapes against the exact product
+   (and whether ``torch._int_mm`` takes a row-major B); a profile of 3
+   64-clip requests of each route (device time by kernel, idle share).
 7. ``train``: training steps of the full-width ST-GCN at the JAX bench's
    shape (B=128, T=300, remat off) in five configurations, timed in turns
    (10 steps after 3 warm-up, each ending synchronized), in bf16 and in
@@ -145,7 +163,11 @@ so the exit code is not 0.
     recomputed from the streams' probabilities and its launches as
     predicted; ``Predictor.from_checkpoint`` on the fused ST-GCN, 10
     launches of #1 a request, its probabilities and logits against the
-    unfused predictor's. Clips/s of each evaluation, end to end and of the
+    unfused predictor's. ``cli.evaluate.main --predictor folded`` and
+    ``int8`` on the joint checkpoint (no kernel launch), each report equal
+    to the one recomputed from the same route's logits, at most a quarter
+    of the clips tied (``zoo_cli``'s tolerance). Clips/s of each
+    evaluation, end to end (a folded run's fold included) and of the
     forward alone.
 14. ``zoo``: ST-GIN, ST-PGCN, ST-PGCN-P and the debug ST-GCN
     (``experimental``), full-width NTU-60 (T=300), seeded weights with
@@ -168,7 +190,8 @@ so the exit code is not 0.
     launch in the phase (``zoo``): none of these models reaches one, as
     none of their JAX counterparts reaches ``pl.pallas_call``.
 
-Then the kernels line (``sgcn_fwd`` ``ms``/``plain_ms``: f32 time of the
+Then ``seconds`` (each phase's wall time) and the kernels line
+(``sgcn_fwd`` ``ms``/``plain_ms``: f32 time of the
 ten spatial convs of one 64-clip request; ``sgcn_bwd`` and
 ``sgcn_fwd_stats``: f32 time of the ten blocks' calls at NM=256; these
 three carry cuBLAS's 1x1 conv (#1, #2) or its two products on a
@@ -233,6 +256,7 @@ from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     spatial_adjacency,
 )
 from skeleton_action_recognition_tpu_torch.models import (
+    export,
     layers,
     lstm_sampler,
     model_class,
@@ -372,6 +396,28 @@ SPEC_LOGIT_TOL = 5e-3
 # the fused predictor's logits against the unfused one's, max |diff| / max
 # |unfused|: KERNEL_REL_TOL's f32 1e-5 a block, through ten blocks
 PREDICTOR_LOGIT_TOL = 1e-4
+# the folded predictors (models/export.py; export phase): the routes, as
+# (dtype, Predictor's quantize); f32 is no Predictor option (the JAX
+# Predictor folds in bf16), so its Predictor serves the f32 fold directly
+FOLDED = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
+          "w8": (torch.bfloat16, "w8"), "w8a8": (torch.bfloat16, "w8a8")}
+# each route's logits against the stock f32 Predictor's on the card, max
+# |diff| / max |stock|: f32 is the same sums in other orders
+# (PREDICTOR_LOGIT_TOL); bf16 rounds the activations to 8 bits of mantissa
+# before each product and conv (the CPU tests hold the port's bf16, W8 and
+# W8A8 routes within 2e-2 of the JAX package's same route); W8 and W8A8
+# add the weights' and the activations' int8 rounding (the JAX package's
+# own test allows them 2.5x and 5x its bf16 bound, tests/test_export.py)
+FOLDED_TOL = {"f32": PREDICTOR_LOGIT_TOL, "bf16": 2e-2, "w8": 5e-2,
+              "w8a8": 5e-2}
+# each route on the card against the same route and weights on the CPU:
+# the CPU multiplies the bf16-rounded operands in f32, the card in cuBLAS's
+# and cuDNN's bf16 with f32 accumulation, and a last-bit difference can
+# move an activation's rounding (bf16 or int8) by one step
+FOLDED_CPU_TOL = {"f32": PREDICTOR_LOGIT_TOL, "bf16": 2e-2, "w8": 2e-2,
+                  "w8a8": 2e-2}
+FOLDED_CPU_REQUESTS = (1, 7)  # the CPU forward of 64 clips takes seconds
+FOLDED_TF32_REPS = 5
 # the GNN zoo (zoo phase): the models, those that take a dtype (trained in
 # bf16 too), those with an adjacency parameter to freeze, those driven
 # through the CLIs (the two trunks: ST-GCN's blocks with GIN convs, and the
@@ -1106,11 +1152,56 @@ def phase_slice(device, requests):
     return state, launches
 
 
-def phase_latency(device, state, x, reps=20):
+def folded_predictors(device, state):
+    """``{route: (Predictor, build seconds)}`` for the routes of
+    ``FOLDED``, each folded from the stock f32 model of ``state`` and timed
+    from the model's copy to the card to the weights' arrival there (the
+    fold is host code)."""
+    out = {}
+    for route, (dtype, quantize) in FOLDED.items():
+        model = seeded_model("f32", False, state)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        if route == "f32":
+            pred = Predictor(model, 64, device)
+            pred._forward = export.fused_stgcn_predictor(
+                pred.model, dtype, device)
+        else:
+            pred = Predictor(model, 64, device, fused=True,
+                             quantize=quantize)
+        torch.cuda.synchronize()
+        out[route] = (pred, time.perf_counter() - start)
+    return out
+
+
+def resident_tensors(pred):
+    """The tensors a ``Predictor`` keeps on its device: the model's
+    parameters and buffers, or the folded predictor's weights and head."""
+    fwd = pred._forward
+    if isinstance(fwd, torch.nn.Module):
+        return [*fwd.parameters(), *fwd.buffers()]
+    tensors = list(fwd.head)
+    for blk in fwd.weights:
+        for value in blk.values():
+            if isinstance(value, torch.Tensor):
+                tensors.append(value)
+            elif value is not None:
+                tensors.extend(value)
+    return tensors
+
+
+def phase_latency(device, state, x, folded, reps=20):
+    """The 64-clip request through the stock predictors (f32 and bf16,
+    unfused and ``fused_sgcn``) and the folded ones (``folded``), timed in
+    turns. ``peak_mem_mb`` is one predictor's own: its resident tensors
+    plus the request's peak above what was allocated before it."""
     predictors = {
-        (name, fused): Predictor(seeded_model(name, fused, state), 64, device)
+        ("stock", name, fused): Predictor(seeded_model(name, fused, state),
+                                          64, device)
         for name in DTYPES for fused in (False, True)
     }
+    for route, (pred, _) in folded.items():
+        predictors[("folded", route, False)] = pred
     for pred in predictors.values():  # warm-up: cuDNN plans, allocator
         pred(x)
         pred(x)
@@ -1121,17 +1212,199 @@ def phase_latency(device, state, x, reps=20):
             start = time.perf_counter()
             predictors[key](x)
             times[key].append(time.perf_counter() - start)
-    for (name, fused), samples in times.items():
+    for (kind, name, fused), samples in times.items():
+        pred = predictors[(kind, name, fused)]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        predictors[(name, fused)](x)
+        pred(x)
+        peak = (torch.cuda.max_memory_allocated() - before
+                + nbytes(*resident_tensors(pred)))
         med = statistics.median(samples)
+        label = (dict(dtype=name, fused_sgcn=fused) if kind == "stock"
+                 else dict(route=name))
         emit(
-            "latency", dtype=name, fused_sgcn=fused, batch=len(x),
+            "latency", predictor=kind, **label, batch=len(x),
             t=x.shape[2], samples=len(samples), median_ms=1e3 * med,
             min_ms=1e3 * min(samples), max_ms=1e3 * max(samples),
-            clips_per_s=len(x) / med,
-            peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
+            clips_per_s=len(x) / med, peak_mem_mb=peak / 2**20,
         )
+
+
+def on_cpu(folded):
+    """A copy of the folded predictor ``folded`` (``models.export``) with
+    its weights and head on the CPU: the same numbers through the CPU's
+    route."""
+    def move(value):
+        if value is None or isinstance(value, torch.Tensor):
+            return None if value is None else value.cpu()
+        return tuple(t.cpu() for t in value)
+
+    cpu = copy.copy(folded)
+    cpu.device = torch.device("cpu")
+    cpu.weights = [{k: move(v) for k, v in blk.items()}
+                   for blk in folded.weights]
+    cpu.head = move(folded.head)
+    return cpu
+
+
+def logit_errors(got, want, tol):
+    """max |got - want| / max |want|, and the clips whose argmax differs
+    though ``want``'s two largest lie more than twice ``tol`` of its scale
+    apart (a disagreement no tie explains)."""
+    scale = np.abs(want).max()
+    ranked = -np.sort(-want, axis=-1)
+    clear = ranked[:, 0] - ranked[:, 1] > 2 * tol * scale
+    return (float(np.abs(got - want).max() / scale),
+            float((got.argmax(-1) == want.argmax(-1)).mean()),
+            int((clear & (got.argmax(-1) != want.argmax(-1))).sum()))
+
+
+def product_routes(folded_bf16, n_clips):
+    """The bf16 folded products at the ten blocks' shapes for ``n_clips``
+    clips (seeded ReLU'd activations, the bf16 predictor's ``wf``):
+    ``torch.mm``'s ``out_dtype=float32`` (the route kept) against the bf16
+    product read back as f32, each's error against the f32 product of the
+    same bf16 operands (the CPU's route, TF32 off) and their CUDA-event
+    times summed over the blocks."""
+    g = torch.Generator(device=folded_bf16.device).manual_seed(SEED)
+    totals = {"out_f32_ms": 0.0, "bf16_ms": 0.0, "out_f32_err": 0.0,
+              "bf16_err": 0.0}
+    t = T
+    for blk, (stride, _, c_out) in zip(folded_bf16.weights,
+                                       folded_bf16.static):
+        w = blk["wf"]
+        a = torch.randn(n_clips * 2 * t, w.shape[0], generator=g,
+                        device=w.device).relu_().bfloat16()
+        exact = a.float() @ w.float()
+        scale = exact.abs().max()
+        for key, fn in (("out_f32", lambda: torch.mm(a, w,
+                                                     out_dtype=torch.float32)),
+                        ("bf16", lambda: torch.mm(a, w).float())):
+            totals[f"{key}_err"] = max(totals[f"{key}_err"], float(
+                (fn() - exact).abs().max() / scale))
+            totals[f"{key}_ms"] += cuda_ms(fn)
+        t = -(-t // stride)
+    return totals
+
+
+def int8_shapes(device):
+    """``export.int8_product`` on the card at rows 1, 17 and 593 (padded)
+    and K = 75 (block 0's, padded to 80) against the exact product, and
+    whether ``torch._int_mm`` takes a row-major B (the route does not rely
+    on it): ``{check: "ok" or the error's first line}``."""
+    g = torch.Generator().manual_seed(SEED)
+    wq = torch.randint(-127, 128, (80, 1600), generator=g,
+                       dtype=torch.int8)
+    wq[75:] = 0
+    col = wq.t().contiguous().to(device).t()
+    out = {}
+    for m in (1, 17, 593):
+        qa = torch.randint(-127, 128, (m, 75), generator=g, dtype=torch.int8)
+        got = export.int8_product(qa.to(device), col).cpu()
+        exact = (qa.double() @ wq[:75].double()).to(torch.int32)
+        check(torch.equal(got, exact), f"int8_product at {m} rows differs")
+        out[f"rows_{m}"] = "ok"
+    try:
+        torch._int_mm(torch.zeros(600, 80, dtype=torch.int8, device=device),
+                      wq.to(device))
+        torch.cuda.synchronize()
+        out["row_major_b"] = "ok"
+    except RuntimeError as err:
+        out["row_major_b"] = str(err).splitlines()[0][:160]
+    return out
+
+
+def phase_export(device, state, requests, folded):
+    """The folded predictors (``folded_predictors``) on the 1-, 7- and
+    64-clip requests: each route's logits against the stock f32
+    ``Predictor``'s on the card and against the same route on the CPU
+    (``FOLDED_CPU_REQUESTS``), argmax agreement, ``torch._int_mm`` calls
+    (10 a W8A8 request, none elsewhere), no launch of any kernel of the
+    port, the folded weights' device bytes and each build's host time; the
+    f32 route with TF32 on and off; the bf16 product's two accumulation
+    routes; ``int8_product``'s padded shapes."""
+    stock = Predictor(seeded_model("f32", False, state), 64, device)
+    int_mm = torch._int_mm
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return int_mm(*args, **kwargs)
+
+    records = {}
+    try:
+        torch._int_mm = counted
+        for route, (pred, build_s) in folded.items():
+            fwd = pred._forward
+            cpu = on_cpu(fwd)
+            errors, cpu_errors, per_request = {}, {}, {}
+            reset_launches()
+            for n, x in requests.items():
+                before = calls[0]
+                logits = fwd(x).cpu().numpy()
+                per_request[n] = calls[0] - before
+                with torch.inference_mode():
+                    want = stock.model(torch.from_numpy(x).to(device))
+                want = want.float().cpu().numpy()
+                check(logits.shape == (n, 60) and np.isfinite(logits).all(),
+                      f"{route}: logits {logits.shape} or not finite")
+                errors[n] = logit_errors(logits, want, FOLDED_TOL[route])
+                if n in FOLDED_CPU_REQUESTS:
+                    cpu_errors[n] = logit_errors(logits, cpu(x).numpy(),
+                                                 FOLDED_CPU_TOL[route])
+            launches = read_launches(tuple(COUNTERS))
+            records[route] = dict(
+                build_s=build_s,
+                weight_mb=nbytes(*resident_tensors(pred)) / 2**20,
+                int_mm_calls=per_request, launches=launches,
+                vs_stock={n: e[0] for n, e in errors.items()},
+                argmax_agree={n: e[1] for n, e in errors.items()},
+                vs_cpu={n: e[0] for n, e in cpu_errors.items()},
+                cpu_argmax_agree={n: e[1] for n, e in cpu_errors.items()})
+            check(not any(launches.values()),
+                  f"{route} launched kernels of the port: {launches}")
+            want_calls = 10 if route == "w8a8" else 0
+            check(all(c == want_calls for c in per_request.values()),
+                  f"{route}: {per_request} _int_mm calls, not {want_calls} "
+                  "a request")
+            check(all(e[0] <= FOLDED_TOL[route] and not e[2]
+                      for e in errors.values()),
+                  f"{route} against the stock predictor: {errors}")
+            check(all(e[0] <= FOLDED_CPU_TOL[route] and not e[2]
+                      for e in cpu_errors.values()),
+                  f"{route} on the card against the CPU: {cpu_errors}")
+            del cpu
+    finally:
+        torch._int_mm = int_mm
+
+    # the f32 route with TF32 on (the stock model's matmuls follow the
+    # same switch) and off, in turns
+    x = requests[64]
+    f32 = folded["f32"][0]
+    tf32 = {False: [], True: []}
+    for rep in range(2 * FOLDED_TF32_REPS + 2):
+        on = rep % 2 == 1
+        torch.backends.cuda.matmul.allow_tf32 = on
+        torch.backends.cudnn.allow_tf32 = on
+        start = time.perf_counter()
+        f32(x)
+        if rep >= 2:  # a warm-up request each way
+            tf32[on].append(time.perf_counter() - start)
+    logits_tf32 = f32._forward(x).cpu().numpy()
+    tf32_off()
+    with torch.inference_mode():
+        want = stock.model(torch.from_numpy(x).to(device)).cpu().numpy()
+    # where each route's 64-clip request spends the device's time
+    profiles = {route: device_profile(lambda: pred(x), PROFILE_STEPS)
+                for route, (pred, _) in folded.items()}
+    emit("export", routes=records, tol=FOLDED_TOL, cpu_tol=FOLDED_CPU_TOL,
+         profile_n64=profiles,
+         f32_median_ms={"tf32_off": 1e3 * statistics.median(tf32[False]),
+                        "tf32_on": 1e3 * statistics.median(tf32[True])},
+         f32_tf32_vs_stock=logit_errors(logits_tf32, want, 1.0)[0],
+         product_routes_n64=product_routes(folded["bf16"][0]._forward, 64),
+         int8_shapes=int8_shapes(device))
 
 
 COUNTERS = {
@@ -2309,6 +2582,27 @@ def phase_eval_path(device):
             "--weights", *weights, "--test-data-path", val["tfrecord"]],
             device=device))
         ens_launches = read_launches(tuple(COUNTERS))
+        # the folded and W8 predictors (no warm-up: the export phase warmed
+        # cuBLAS and cuDNN; each run folds the checkpoint on the host). The
+        # predictor each run folds is kept for the recomputed report below
+        # (folding again would take seconds)
+        folded_runs = {}
+        for predictor, name in (("folded", "fused_stgcn_predictor"),
+                                ("int8", "quantized_stgcn_predictor")):
+            factory, built = getattr(export, name), []
+            setattr(export, name, lambda *args, **kwargs: built.append(
+                factory(*args, **kwargs)) or built[-1])
+            try:
+                reset_launches()
+                report, seconds = timed(lambda: evaluate.main(
+                    gnn_argv + ["--predictor", predictor], device=device))
+            finally:
+                setattr(export, name, factory)
+            check(len(built) == 1, f"evaluate {predictor} folded "
+                  f"{len(built)} times")
+            folded_runs[predictor] = (report, seconds,
+                                      read_launches(tuple(COUNTERS)),
+                                      built[0])
 
         # the reports, recomputed from each model's probabilities
         tf_data = TFRecordDataset(val["tfrecord"], EVAL_BATCH)
@@ -2344,6 +2638,23 @@ def phase_eval_path(device):
             check(ens_report[f"{name}_top1"] == top1,
                   f"ensemble {name}_top1 {ens_report[f'{name}_top1']}, "
                   f"recomputed {top1}")
+        # the folded routes' reports, recomputed from the same route's
+        # logits; ranked by logits, as evaluate ranks them (zoo_cli's ties)
+        for predictor, (report, _, _, fwd) in folded_runs.items():
+            logits = np.concatenate([
+                fwd(xb).cpu().numpy() for xb, _ in TFRecordDataset(
+                    val["tfrecord"], EVAL_BATCH,
+                    transform=stream_transform("joint")).batches()])
+            label = f"evaluate {predictor}"
+            want, ties[label] = reference_report(logits, labels,
+                                                 ZOO_CLI_TIE_TOL)
+            check(ties[label] <= ZOO_CLI_TIES * n,
+                  f"{label}: {ties[label]} of {n} clips tie in their logits")
+            check(report["samples"] == n and report["checkpoint_step"] == 0
+                  and report["predictor"] == predictor,
+                  f"{label} report {report}")
+            check_report(label, report, want, ties[label], n)
+        folded_runs = {p: run[:3] for p, run in folded_runs.items()}
 
         # the spectrogram model through the kernels and the plain routes
         kernels = restored(spectrogram.Model(
@@ -2392,19 +2703,26 @@ def phase_eval_path(device):
                                  "stft_fwd": batches},
         "ensemble": {**none, "radar_fwd": batches, "stft_fwd": batches},
         "predictor": {**none, "sgcn_fwd": 10 * len(requests)},
+        "evaluate_folded": none,
+        "evaluate_int8": none,
     }
     launches = {"evaluate_stgcn": gnn_launches,
                 "evaluate_spectrogram": spec_launches,
-                "ensemble": ens_launches, "predictor": pred_launches}
+                "ensemble": ens_launches, "predictor": pred_launches,
+                **{f"evaluate_{p}": run[2] for p, run in folded_runs.items()}}
     emit(
         "eval_path", clips=counts, multi_body_files=written,
         data_gen_s=gen_s, data_gen_records_per_s=records / gen_s,
         host_cpu=host_cpu(), batch=EVAL_BATCH, batches=batches,
         reports={"evaluate_stgcn": gnn_report,
-                 "evaluate_spectrogram": spec_report, "ensemble": ens_report},
+                 "evaluate_spectrogram": spec_report, "ensemble": ens_report,
+                 **{f"evaluate_{p}": run[0]
+                    for p, run in folded_runs.items()}},
         tied_clips=ties, predictor_top1=served_top1,
         eval_clips_per_s={"stgcn": n / gnn_s, "spectrogram": n / spec_s,
-                          "ensemble": n / ens_s},
+                          "ensemble": n / ens_s,
+                          **{f"stgcn_{p}": n / run[1]
+                             for p, run in folded_runs.items()}},
         forward_clips_per_s=forward_rate,
         spec_rel_err=spec_err, spec_tol={
             "return": ROUTE_TOL[5e-4], "mag": STFT_MAG_TOL,
@@ -2668,32 +2986,54 @@ def phase_zoo(device, x):
 def main():
     phase_env()
     device = torch.device("cuda", 0)
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):  # the seconds since the last lap, by phase
+        now = time.perf_counter()
+        laps[name], last[0] = now - last[0], now
+
     phase_build()
     phase_sgcn_build()
+    lap("build")
     totals = phase_kernel(device)
     bwd_totals = phase_kernel_bwd(device)
     new_totals = {"sgcn_fwd_stats": phase_kernel_stats(device),
                   **phase_tconv_kernel(device)}
+    lap("kernels")
     rng = np.random.default_rng(SEED)
     requests = {
         n: rng.normal(size=(n, 3, T, 25, 2)).astype(np.float32)
         for n in REQUESTS
     }
     state, _ = phase_slice(device, requests)
-    phase_latency(device, state, requests[64])
+    lap("slice")
+    folded = folded_predictors(device, state)
+    phase_latency(device, state, requests[64], folded)
+    lap("latency")
+    phase_export(device, state, requests, folded)
+    del folded
+    torch.cuda.empty_cache()
+    lap("export")
     train_launches = phase_train(device)
+    lap("train")
     launches = phase_cli(device)
     torch.cuda.empty_cache()
     tf32_off()
+    lap("cli")
     phase_radar_build()
     spec_totals, (re, im) = phase_radar_kernel(device)
     dense_totals = phase_radar_dense_kernel(device)
     spec_totals.update(phase_stft_kernel(device, re, im))
     del re, im
+    lap("radar_stft_kernels")
     phase_spec_train(device)
     spec_launches = phase_spec_cli(device)
+    lap("spec_train_cli")
     phase_eval_path(device)
+    lap("eval_path")
     phase_zoo(device, requests[64])
+    lap("zoo")
+    emit("seconds", **laps)
     # #7's entry counts both instances; the loc/lambda one's count beside
     loc_lam = spec_launches.pop("radar_bwd_loc_lam")
     spec_totals["radar_bwd"]["loc_lam_launches"] = loc_lam

@@ -10,8 +10,12 @@ trainer reads. Differences from the JAX CLI:
 
 * one device; the JAX CLI shards the batch over every chip. Eager PyTorch
   runs a partial last batch as it is, so nothing is padded;
-* ``--predictor`` takes only ``stock``: the folded and int8 predictors
-  (``models/export.py``) are not ported, and asking for them raises;
+* ``--predictor folded`` serves the folded stock ST-GCN in bfloat16 and
+  ``int8`` its W8 form (``models/export.py``), as in JAX; any other model
+  raises ``ValueError`` before any data is read (the JAX CLI reads the
+  stock parameter names of whatever model it gets, and folds ST-PGCN
+  without its projection), and a spectrogram-family model exits as in
+  JAX;
 * a spectrogram-family model runs its radar and STFT through the CUDA
   kernels (``use_pallas`` and ``use_pallas_stft``, as the port's
   spectrogram trainer does by default), with TF32 off in matrix products
@@ -25,7 +29,8 @@ trainer reads. Differences from the JAX CLI:
 Run:
     python -m skeleton_action_recognition_tpu_torch.cli.evaluate \\
         --model stgcn --checkpoint logs/run/checkpoints \\
-        --test-data-path data/ntu/xview/val_data_joint [--stream bone]
+        --test-data-path data/ntu/xview/val_data_joint [--stream bone] \\
+        [--predictor folded|int8|stock]
 
     python -m skeleton_action_recognition_tpu_torch.cli.evaluate \\
         --model spectrogram --checkpoint logs/run/checkpoints \\
@@ -47,7 +52,7 @@ from skeleton_action_recognition_tpu_torch.data.pipeline import (
     TFRecordDataset,
     stream_transform,
 )
-from skeleton_action_recognition_tpu_torch.models import model_class
+from skeleton_action_recognition_tpu_torch.models import export, model_class
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     prefetch_to_device,
     resolve_device,
@@ -121,19 +126,17 @@ def main(argv=None, *, device="cuda") -> dict:
     if arg.data_path is not None and arg.label_path is None:
         raise SystemExit("--data-path requires --label-path")
     cls = model_class(arg.model)
-    if arg.predictor != "stock":
-        if is_spectrogram_family(cls):
-            raise SystemExit(
-                "folded/int8 predictors fold the ST-GCN family's BN and "
-                "adjacency constants; use --predictor stock for "
-                "spectrogram-family models"
-            )
-        raise ValueError(
-            f"--predictor {arg.predictor} is not ported yet: only 'stock' "
-            "is (the folded and int8 predictors are ROADMAP.md Queue 1, "
-            "item 16b)"
+    if arg.predictor != "stock" and is_spectrogram_family(cls):
+        raise SystemExit(
+            "folded/int8 predictors fold the ST-GCN family's BN and "
+            "adjacency constants; use --predictor stock for "
+            "spectrogram-family models"
         )
     device = resolve_device(device)
+    model = build_model(cls, device, arg.num_classes, arg.num_filters,
+                        arg.num_pad_frames)
+    if arg.predictor != "stock":
+        export.check_foldable(model)
 
     if arg.data_path is not None:
         dataset = NumpyDataset(
@@ -151,15 +154,17 @@ def main(argv=None, *, device="cuda") -> dict:
             shuffle=False,
             transform=stream_transform(arg.stream),
         )
-    model = build_model(cls, device, arg.num_classes, arg.num_filters,
-                        arg.num_pad_frames)
     step = ckpt_lib.restore_latest_for_eval(model, arg.checkpoint)
-    model.eval()
+    fwd = model.eval()
+    if arg.predictor == "folded":
+        fwd = export.fused_stgcn_predictor(model, device=device)
+    elif arg.predictor == "int8":
+        fwd = export.quantized_stgcn_predictor(model, device=device)
 
     correct = top5 = total = 0
     with torch.inference_mode():
         for xb, yb in prefetch_to_device(dataset.batches(), device):
-            logits = model(xb).float().cpu().numpy()
+            logits = fwd(xb).float().cpu().numpy()
             labels = yb.argmax(-1).cpu().numpy()
             correct += int((logits.argmax(-1) == labels).sum())
             t5 = np.argsort(logits, axis=-1)[:, -5:]

@@ -69,14 +69,19 @@ def temporal_conv(conv: nn.Conv2d, x, dtype=None):
     """Apply ``conv`` (kernel ``(kt, 1)``, stride ``(s, 1)``, no padding of
     its own) over T of channels-last ``x (N, T, V, C)`` with SAME padding,
     computing in ``dtype`` (None: ``x``'s)."""
-    before, after = _same_padding(
-        x.shape[1], conv.kernel_size[0], conv.stride[0]
-    )
+    return same_conv(x, conv.weight, conv.bias, conv.stride[0], dtype)
+
+
+def same_conv(x, weight, bias, stride: int, dtype=None):
+    """The ``(kt, 1)`` conv ``weight`` (``(C_out, C_in, kt, 1)``; ``bias``
+    or None) at stride ``(stride, 1)`` over T of channels-last ``x (N, T,
+    V, C)`` with SAME padding, computing in ``dtype`` (None: ``x``'s)."""
+    before, after = _same_padding(x.shape[1], weight.shape[2], stride)
     cd = dtype or x.dtype
     x = F.pad(x.to(cd), (0, 0, 0, 0, before, after))
     y = F.conv2d(
-        x.permute(0, 3, 1, 2), conv.weight.to(cd), conv.bias.to(cd),
-        stride=conv.stride,
+        x.permute(0, 3, 1, 2), weight.to(cd),
+        None if bias is None else bias.to(cd), stride=(stride, 1),
     )
     return y.permute(0, 2, 3, 1)
 

@@ -1,9 +1,10 @@
 """The port's checkpoint evaluation against the JAX package's, on the same
-bridged weights: ``Predictor.from_checkpoint``, and ``cli/evaluate.py``'s
-reports for ST-GCN on TFRecords (every ``--stream``) and for the
-spectrogram model on ``.npy`` + pickled labels, and its refusals. The JAX
-side restores from its own checkpoint (Orbax), the port from its own
-(``torch.save``), both written from one seeded set of variables."""
+bridged weights: ``Predictor.from_checkpoint`` (stock and folded), and
+``cli/evaluate.py``'s reports for ST-GCN on TFRecords (every ``--stream``,
+and the folded and int8 predictors) and for the spectrogram model on
+``.npy`` + pickled labels, and its refusals. The JAX side restores from its
+own checkpoint (Orbax), the port from its own (``torch.save``), both
+written from one seeded set of variables."""
 
 import inspect
 import os
@@ -42,6 +43,12 @@ STEP = 3
 # moves the return (tests/test_torch_spectrogram.py's LOGIT_TOL)
 STGCN_LOGIT_TOL = 1e-5
 SPEC_LOGIT_TOL = 5e-3
+# how far the folded predictors' logits (bf16, W8, W8A8; either framework)
+# may lie from the stock ones, of their scale (measured 2.7e-3 to 7.4e-3 in
+# JAX): the reports' tie tolerance; and how far the port's folded
+# probabilities may lie from JAX's
+EXPORT_LOGIT_TOL = 2e-2
+EXPORT_PROB_ATOL = 1e-3
 SPEC = dict(num_filters=8, num_pad_frames=4)
 
 
@@ -158,6 +165,44 @@ def test_predictor_from_checkpoint_matches_jax(stgcn_run, fused):
         pred(x[:5])
 
 
+@pytest.mark.parametrize("predictor", ["folded", "int8"])
+def test_stgcn_report_with_a_folded_predictor_equals_jax(stgcn_run,
+                                                         predictor):
+    """``--predictor folded`` (bfloat16) and ``int8`` (W8), as in JAX."""
+    argv = ["--model", "stgcn", "--test-data-path", stgcn_run["data"],
+            "--num-classes", str(NUM_CLASSES), "--batch-size", "4",
+            "--predictor", predictor]
+    want = jax_evaluate.main(argv + ["--checkpoint", stgcn_run["jax_ckpt"]])
+    got = evaluate.main(argv + ["--checkpoint", stgcn_run["port_ckpt"]],
+                        device="cpu")
+    assert got["samples"] == 9 and got["predictor"] == predictor
+    assert set(got) == set(want)
+    logits = stgcn_run["logits"]["joint"]
+    assert_reports_agree(got, want, logits,
+                         EXPORT_LOGIT_TOL * np.abs(logits).max())
+    assert (got["top1"], got["top5"]) == (round(3 / 9, 4), round(6 / 9, 4))
+
+
+@pytest.mark.parametrize("quantize", [None, "w8", "w8a8"])
+def test_folded_predictor_from_checkpoint_matches_jax(stgcn_run, quantize):
+    """``Predictor.from_checkpoint(..., fused=True, quantize=...)`` against
+    the JAX ``Predictor(fused=True, quantize=...)`` on the same
+    variables."""
+    x = stgcn_run["x"]
+    variables = stgcn_run["variables"]
+    want = jax_serving.Predictor(
+        jax_stgcn.Model(num_classes=NUM_CLASSES), variables["params"],
+        variables["batch_stats"], max_batch=4, fused=True,
+        quantize=quantize)(x[:3])
+    pred = serving.Predictor.from_checkpoint(
+        stgcn.Model(num_classes=NUM_CLASSES), stgcn_run["port_ckpt"],
+        max_batch=4, device="cpu", fused=True, quantize=quantize)
+    got = pred(x[:3])
+    assert got.shape == (3, NUM_CLASSES)
+    np.testing.assert_allclose(got, want, rtol=0, atol=EXPORT_PROB_ATOL)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
 def test_predictor_from_checkpoint_refuses_an_empty_directory(tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         serving.Predictor.from_checkpoint(
@@ -227,14 +272,15 @@ def test_spectrogram_model_runs_the_kernel_routes(monkeypatch):
      "'nosuch' names no model: the models are experimental"),
     (["--test-data-path", "d", "--model", "gcn"], ValueError,
      "'gcn' names no model: .*stgcn, stgin, stpgcn, stpgcnp"),
-    (["--test-data-path", "d", "--predictor", "folded"], ValueError,
-     "item 16b"),
-    (["--test-data-path", "d", "--predictor", "int8"], ValueError,
-     "item 16b"),
     (["--data-path", "x.npy", "--label-path", "y.pkl", "--model",
       "spectrogram", "--predictor", "int8"], SystemExit, "predictor stock"),
+    (["--test-data-path", "d", "--model", "stgin", "--predictor", "folded"],
+     ValueError, "stock ST-GCN .* not .*stgin"),
+    (["--test-data-path", "d", "--model", "stpgcn", "--predictor", "int8"],
+     ValueError, "stock ST-GCN .* not .*stpgcn"),
 ], ids=["no_data", "both_data", "no_labels", "unported_model",
-        "module_without_model", "folded", "int8", "spectrogram_int8"])
+        "module_without_model", "spectrogram_int8", "stgin_folded",
+        "stpgcn_int8"])
 def test_evaluate_refuses(tmp_path, argv, error, match):
     with pytest.raises(error, match=match):
         evaluate.main(argv + ["--checkpoint", str(tmp_path)], device="cpu")

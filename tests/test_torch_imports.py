@@ -67,6 +67,7 @@ def test_port_imports_with_jax_blocked():
         "import skeleton_action_recognition_tpu_torch.models.stpgcnp\n"
         "import skeleton_action_recognition_tpu_torch.models.experimental\n"
         "import skeleton_action_recognition_tpu_torch.models.lstm_sampler\n"
+        "import skeleton_action_recognition_tpu_torch.models.export\n"
         "from skeleton_action_recognition_tpu_torch.models import (\n"
         "    model_names)\n"
         "assert {'stgcn', 'stgin', 'stpgcn', 'stpgcnp', 'experimental',\n"
