@@ -88,6 +88,30 @@ so the exit code is not 0.
    resumed epoch, finite losses and accuracies, and launch counts equal to
    the prediction (20 forward and 10 backward a train step with remat, 10
    forward an eval batch). Also the TFRecord decode rate of this host.
+   ``ddp``: data parallelism on this one card. (b) ``ddp_ranks``: two
+   gloo ranks (CUDA tensors, ``file://`` rendezvous), each a child process
+   on 64 rows of a seeded global batch of 128 (T=300), one train step of
+   the full-width ST-GCN with ``fused_tconv`` (#1, #3, #4, #5) and with
+   ``sgcn_stats`` (#2, #3), every block fused, remat off, f32 with TF32
+   off, and one unfrozen step of the full-width spectrogram model (#6,
+   #7's loc/lambda instance, #10, #11), held against this process on all
+   128 rows: the ranks' parameters and running statistics bit for bit
+   alike, each step's launches, the loss and parameters at ``DDP_*``'s
+   tolerances, then the median time of 3 further steps in each process. (a) ``ddp_world_1``: ``cli.main_gnn`` in a child process
+   under torchrun's environment at world size 1 (NCCL, ``env://`` on
+   127.0.0.1), ``--fused-sgcn`` with both fused training options
+   (``StatsTconvModel``), one epoch on the ``cli`` phase's TFRecords,
+   against two runs without a process group (the second beside (b)'s
+   ranks): its losses equal bit for bit where the two plain runs are, its
+   launches equal; then 5 train steps of that model at 64 clips in the
+   group's process and the first plain one's (step time with the group and
+   without). (c) ``ddp_host``: this host's TFRecord records/s on 256
+   full-size clips (in RAM, streamed, native and Python decode) and
+   ``data_gen`` on 60 ``corpus_lib`` clips with the native and the Python
+   parser (their joint arrays within 1e-6). (d) ``ddp_serving``:
+   ``Predictor(devices=[card, card])`` against one replica on the 64-clip
+   request (probabilities within ``PROB_ATOL``, the same argmax, median
+   latency of 5 each in turns).
 
 9. ``radar_build``: registers, spills and shared memory of the spline
    radar kernels (csrc/radar_spline.cuh: #6, #7 and #7's loc/lambda
@@ -221,6 +245,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import functools
 import inspect
 import json
 import os
@@ -233,9 +258,12 @@ import time
 from concurrent import futures
 
 import pickle
+import socket
+import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from scripts import corpus_lib
@@ -272,6 +300,10 @@ from skeleton_action_recognition_tpu_torch.ops import (
     stft_logmag,
     tconv,
     virtual_radar,
+)
+from skeleton_action_recognition_tpu_torch.parallel import distributed
+from skeleton_action_recognition_tpu_torch.parallel.sharding import (
+    DataParallel,
 )
 from skeleton_action_recognition_tpu_torch.serving import Predictor
 from skeleton_action_recognition_tpu_torch.train.optim import (
@@ -474,6 +506,28 @@ TCONV_GRAD_TOL = 1e-4
 # device memory's bytes/s. A kernel's bound is the larger of its operations
 # over the peak of their type and its bytes (inputs read once, outputs
 # written once) over the memory rate.
+# the ddp phase: (b) two gloo ranks of DDP_LOCAL_BATCH clips on card 0
+# against one process on both ranks' rows, the ST-GCN in two
+# configurations that between them launch #1-#5 (every block fused, remat
+# off), the spectrogram model unfrozen (#6, #7's loc/lambda instance, #10,
+# #11). Parameters after the step to the JAX data-parallel test's 3e-4
+# (tests/test_parallel.py; f32 sums over the rows in another order), the
+# ST-GCN's loss to its 1e-5; the spectrogram's backbone, Adam's first step
+# (+-lr an element, sign-like), to 2 lr, its loss to 1e-4 (f32 through the
+# radar at lambda = 5e-4), lambda's relative step to 1e-5 and loc's
+# direction to within 8 degrees (tests/test_torch_radar_train.py).
+DDP_WORLD, DDP_LOCAL_BATCH = 2, 64
+DDP_REPEATS = 3  # further steps after the compared one, timed (median)
+DDP_STGCN = {"fused_tconv": dict(fused_tconv=True),
+             "sgcn_stats": dict(sgcn_stats=True)}
+DDP_PARAM_ATOL, DDP_LOSS_RTOL, DDP_SPEC_LOSS_RTOL = 3e-4, 1e-5, 1e-4
+# (a): main_gnn as torchrun starts it at world size 1 (NCCL), twice
+# without a process group; then DDP_TIMED_STEPS train steps of its model
+# at DDP_LOCAL_BATCH clips after TRAIN_WARMUP, timed on the host clock
+DDP_TIMED_STEPS = 5
+# (c): the host's TFRecord rates on DDP_HOST_CLIPS full-size clips in
+# DDP_HOST_SHARDS shards, and data_gen on corpus_lib's 60 classes x 1
+DDP_HOST_CLIPS, DDP_HOST_SHARDS = 256, 8
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
 # operations of one (sample, edge-body) pair of the radar kernels, counted
@@ -2982,6 +3036,389 @@ def phase_zoo(device, x):
     check(not any(launches.values()),
           f"the zoo launched kernels of the port: {launches}")
 
+class StatsTconvModel(Model):
+    """The ST-GCN with both fused training options on (``sgcn_stats`` on
+    the fused blocks, ``fused_tconv`` on the others' stride-1 temporal
+    chains), for ``main_gnn --model``: as in JAX, no flag sets them. With
+    ``--fused-sgcn-min-channels 128`` a train step launches #2 and #3 on
+    the six wide blocks and #4 and #5 on the three narrow stride-1 ones,
+    and an eval batch #1 on the six."""
+
+    def __init__(self, num_classes=60, dtype=None, fused_sgcn=False,
+                 fused_sgcn_min_channels=0, remat=True,
+                 trainable_adjacency=False, device=None, generator=None):
+        super().__init__(
+            num_classes, dtype=dtype, fused_sgcn=fused_sgcn,
+            fused_sgcn_min_channels=fused_sgcn_min_channels, remat=remat,
+            trainable_adjacency=trainable_adjacency, fused_tconv=True,
+            sgcn_stats=True, device=device, generator=generator,
+        )
+
+
+def ddp_cli_child(out, device, *argv):
+    """One process of the ``ddp`` phase's (a), in a process group where
+    torchrun's environment names one: ``main_gnn.main(argv)`` on
+    ``device`` with :class:`StatsTconvModel`, its launches, then the median
+    time of ``DDP_TIMED_STEPS`` train steps of that model at
+    ``DDP_LOCAL_BATCH`` clips (its precision, its data parallelism);
+    written to ``out`` as JSON."""
+    main_gnn.model_class = lambda name: StatsTconvModel
+    reset_launches()
+    history = main_gnn.main(list(argv), device=device)
+    launches = read_launches(tuple(COUNTERS))
+    device = distributed.local_device(device)
+    dp = DataParallel()
+    model = StatsTconvModel(fused_sgcn=True, fused_sgcn_min_channels=128,
+                            device=device,
+                            generator=torch.Generator().manual_seed(SEED))
+    x, y = ddp_batch(DDP_LOCAL_BATCH, SEED + 11)
+    xs, ys = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    step = make_train_step(model, TFSGD(model.parameters(), 0.01),
+                           DDP_LOCAL_BATCH * dp.world_size,
+                           dp=dp if dp.active else None)
+    times = []
+    for i in range(TRAIN_WARMUP + DDP_TIMED_STEPS):
+        start = time.perf_counter()
+        step(xs, ys, False)["loss"].item()  # ends synchronized
+        times.append(time.perf_counter() - start)
+    with open(out, "w") as f:
+        json.dump({"history": history, "launches": launches,
+                   "group": dp.active, "world_size": dp.world_size,
+                   "backend": dist.get_backend() if dp.active else None,
+                   "step_ms": 1e3 * statistics.median(
+                       times[TRAIN_WARMUP:])}, f)
+    if dp.active:
+        dist.destroy_process_group()
+
+
+def ddp_batch(n, seed):
+    """``n`` seeded normal clips (T=300) and one-hot labels of 60
+    classes."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 3, T, 25, 2)).astype(np.float32)
+    return x, np.eye(60, dtype=np.float32)[rng.integers(0, 60, n)]
+
+
+def ddp_steps(device, dp):
+    """One train step of each DDP_STGCN configuration and of the unfrozen
+    spectrogram model, each rank on its rows of the same seeded global
+    batch (``dp`` without a group: the whole batch); each step's loss, the
+    model's state after it and its launches; then the median time of
+    DDP_REPEATS further steps."""
+    n = DDP_WORLD * DDP_LOCAL_BATCH
+    x, y = ddp_batch(n, SEED + 12)
+    sx, labels = spec_clips(n, SEED + 13)
+    sy = np.eye(60, dtype=np.float32)[labels]
+    out = {}
+    for name in list(DDP_STGCN) + ["spectrogram"]:
+        g = torch.Generator().manual_seed(SEED)
+        if name == "spectrogram":
+            model = spectrogram.Model(
+                num_classes=60, num_pad_frames=SPEC_UP, use_pallas=True,
+                use_pallas_stft=True, device=device, generator=g)
+            opt = RadarOptimizer(model.named_parameters(), SPEC_LR)
+            fn = make_radar_train_step(model, opt, n, True, True,
+                                       dp=dp if dp.active else None)
+            step, data = (lambda xs, ys: fn(xs, ys)), (sx, sy)
+        else:
+            model = Model(num_classes=60, fused_sgcn=True, remat=False,
+                          device=device, generator=g, **DDP_STGCN[name])
+            fn = make_train_step(model, TFSGD(model.parameters(), 0.01), n,
+                                 dp=dp if dp.active else None)
+            step, data = (lambda xs, ys: fn(xs, ys, False)), (x, y)
+        dp.broadcast_module(model)
+        xs, ys = (torch.from_numpy(dp.local_rows(a)).to(device)
+                  for a in data)
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+        reset_launches()
+        m = step(xs, ys)
+        out[name] = {
+            "loss": m["loss"].item(), "count": int(m["count"].item()),
+            "launches": read_launches(tuple(COUNTERS)), "before": before,
+            "state": {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()},
+        }
+        times = []
+        for _ in range(DDP_REPEATS):
+            start = time.perf_counter()
+            step(xs, ys)["loss"].item()  # ends synchronized
+            times.append(time.perf_counter() - start)
+        out[name]["step_ms"] = 1e3 * statistics.median(times)
+        del model, step, fn, xs, ys
+        torch.cuda.empty_cache()
+    return out
+
+
+def ddp_rank(rank, init_file, out, device="cuda:0"):
+    """One gloo rank of the ``ddp`` phase's (b) on ``device`` (every rank
+    on card 0): joins the group through ``maybe_initialize_distributed``
+    and saves :func:`ddp_steps`'s results to ``out``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DDP_WORLD),
+                      LOCAL_RANK="0")
+    check(distributed.maybe_initialize_distributed(
+        "gloo", init_method=f"file://{init_file}"), "no process group")
+    tf32_off()
+    dp = DataParallel()
+    check((dp.rank, dp.world_size) == (int(rank), DDP_WORLD),
+          f"rank {dp.rank} of {dp.world_size}")
+    torch.save(ddp_steps(torch.device(device), dp), out)
+    dist.destroy_process_group()
+
+
+def child(code, *args, env=None):
+    """Start ``python3 -c code args...`` from the repository's root;
+    returns the process, not waited for."""
+    return subprocess.Popen(
+        [sys.executable, "-c", code, *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, **(env or {})}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+    )
+
+
+def wait_all(procs, timeout=600):
+    """Wait for ``procs``; raise with the output's tail if one failed."""
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0, f"child exited {p.returncode}:\n"
+                                 f"{log[-4000:]}")
+    return logs
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def degrees_between(a, b):
+    cos = float((a @ b) / (a.norm() * b.norm()))
+    return float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
+
+
+def ddp_compare(ranks, alone):
+    """(b)'s checks: the ranks' states bit for bit alike and their global
+    counts; against one process, the losses and states at the DDP_*
+    tolerances. Returns the errors by configuration."""
+    errors = {}
+    for name, ref in alone.items():
+        got = [r[name] for r in ranks]
+        check(all(g["loss"] == got[0]["loss"] for g in got),
+              f"{name}: the ranks' losses differ")
+        check(all(g["count"] == DDP_WORLD * DDP_LOCAL_BATCH for g in got),
+              f"{name}: counts {[g['count'] for g in got]}")
+        for k, v in got[0]["state"].items():
+            check(all(torch.equal(g["state"][k], v) for g in got[1:]),
+                  f"{name}: {k} differs between the ranks")
+        spec = name == "spectrogram"
+        loss_err = abs(got[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+        check(loss_err <= (DDP_SPEC_LOSS_RTOL if spec else DDP_LOSS_RTOL),
+              f"{name}: loss {got[0]['loss']} against {ref['loss']}")
+        worst, stats_worst, radar = 0.0, 0.0, {}
+        for k, want in ref["state"].items():
+            have, init = got[0]["state"][k], ref["before"][k]
+            if "radar_lambda" in k:
+                rel = float(((have - init) / (want - init) - 1).abs())
+                radar["lambda_step_rel_err"] = rel
+                check(rel <= 1e-5, f"radar_lambda moved {have} for {want}")
+            elif "radar_loc" in k:
+                deg = degrees_between(have - init, want - init)
+                radar["loc_step_degrees"] = deg
+                check(deg <= 8.0, f"radar_loc moved {deg} degrees apart")
+            elif "running" in k:
+                stats_worst = max(stats_worst,
+                                  float((have - want).abs().max()))
+            else:
+                worst = max(worst, float((have - want).abs().max()))
+        atol = 2 * SPEC_LR + 1e-6 if spec else DDP_PARAM_ATOL
+        check(worst <= atol, f"{name}: parameters {worst} from one process")
+        check(stats_worst <= DDP_PARAM_ATOL,
+              f"{name}: running statistics {stats_worst} from one process")
+        errors[name] = {"loss_rel_err": loss_err, "param_max_abs_err": worst,
+                        "param_atol": atol,
+                        "running_stats_max_abs_err": stats_worst, **radar}
+    return errors
+
+
+def host_rates(tmp):
+    """(c): TFRecord records/s of this host, in RAM and streamed, native
+    and Python decode; data_gen records/s with the native and the Python
+    parser, and the distance of their joint arrays."""
+    rng = np.random.default_rng(SEED + 14)
+    x = rng.normal(size=(DDP_HOST_CLIPS, 3, T, 25, 2)).astype(np.float32)
+    d = os.path.join(tmp, "host")
+    paths = tfrecord.write_dataset(x, rng.integers(0, 60, DDP_HOST_CLIPS),
+                                   d, "h", num_shards=DDP_HOST_SHARDS)
+    rates = {}
+
+    def epoch(**kwargs):
+        ds = TFRecordDataset(d, 64, shuffle=True, **kwargs)
+        return sum(len(b) for b, _ in ds.batches())
+
+    for name, fn in (
+        ("in_ram_epoch", lambda: epoch()),
+        ("stream_epoch", lambda: epoch(stream=True)),
+        ("stream_epoch_reservoir_64", lambda: epoch(stream=True,
+                                                   shuffle_buffer=64)),
+        ("native_decode_one_thread",
+         lambda: sum(len(tfrecord.decode_shard(p)[1]) for p in paths)),
+        ("python_decode_one_thread",
+         lambda: sum(len(tfrecord.decode_shard(p, use_native=False)[1])
+                     for p in paths[:2])),
+    ):
+        n, seconds = timed(fn)
+        rates[name] = n / seconds
+    raw = os.path.join(tmp, "raw")
+    corpus_lib.synthesize_corpus(raw, 1, seed=SEED, num_classes=60)
+    read_xyz = skeleton.read_xyz
+    joints = {}
+    for route, use_native in (("native", True), ("python", False)):
+        skeleton.read_xyz = functools.partial(read_xyz, use_native=use_native)
+        try:
+            out = os.path.join(tmp, route)
+            _, seconds = timed(lambda: data_gen.main([
+                "--data-path", raw, "--out-folder", out,
+                "--ignored-sample-path", os.path.join(tmp, "none.txt"),
+                "--benchmarks", "xview", "--streams", "joint",
+                "--num-shards", "2",
+            ]))
+        finally:
+            skeleton.read_xyz = read_xyz
+        rates[f"data_gen_{route}"] = 60 / seconds
+        joints[route] = np.concatenate([
+            np.load(os.path.join(out, "xview", f"{part}_data_joint.npy"))
+            for part in ("train", "val")])
+    err = float(np.abs(joints["native"] - joints["python"]).max())
+    check(err <= 1e-6, f"data_gen's routes differ by {err}")
+    return rates, err
+
+
+def phase_ddp(device, request):
+    """Data parallelism: (a) ``main_gnn`` as torchrun starts it at world
+    size 1 (NCCL) against two runs without a process group; (b) two gloo
+    ranks on this card against one process; (c) the host's input rates;
+    (d) ``Predictor`` with a replica twice on this card."""
+    torch.cuda.empty_cache()
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):  # the seconds since the last lap, by part
+        now = time.perf_counter()
+        laps[name], last[0] = now - last[0], now
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = write_cli_data(tmp, np.random.default_rng(SEED))
+
+        def cli_run(label):
+            """(a)'s child ``label``: a process group at world size 1
+            (NCCL, torchrun's environment) for ``nccl_world_1``, none
+            otherwise."""
+            env = {}
+            if label.startswith("nccl"):
+                env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                           LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                           MASTER_PORT=str(free_port()))
+            argv = ["--model", "stgcn", "--fused-sgcn",
+                    "--batch-size", str(CLI_BATCH), "--num-epochs", "1",
+                    "--base-lr", "0.01", "--train-data-path", dirs["train"],
+                    "--test-data-path", dirs["val"],
+                    "--log-dir", os.path.join(tmp, label)]
+            return child("import sys, chip_smoke; "
+                         "chip_smoke.ddp_cli_child(*sys.argv[1:])",
+                         os.path.join(tmp, f"{label}.json"), "cuda", *argv,
+                         env=env)
+
+        # (b) first, the ranks while this process is idle; with them (a)'s
+        # second plain run, whose losses alone are read
+        init_file = os.path.join(tmp, "rendezvous")
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DDP_WORLD)]
+        wait_all([child(f"import chip_smoke; chip_smoke.ddp_rank({r}, "
+                        f"{init_file!r}, {outs[r]!r})")
+                  for r in range(DDP_WORLD)] + [cli_run("plain_2")])
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        alone = ddp_steps(device, DataParallel())
+        errors = ddp_compare(ranks, alone)
+        # the kernels each step must launch: #1-#5 between the two
+        # configurations, and the spectrogram's forward and loc/lambda
+        # backward
+        launched = {k: sum(step["launches"][k] for step in ranks[0].values())
+                    for k in COUNTERS}
+        want = ("sgcn_fwd", "sgcn_fwd_stats", "sgcn_bwd", "tconv_fwd",
+                "tconv_bwd", "radar_fwd", "radar_bwd_loc_lam", "stft_fwd",
+                "stft_bwd")
+        check(all(launched[k] > 0 for k in want),
+              f"two-rank steps launched {launched}")
+        emit("ddp_ranks", world=DDP_WORLD, backend="gloo",
+             local_batch=DDP_LOCAL_BATCH, t=T, errors=errors,
+             launches_rank0={n: ranks[0][n]["launches"] for n in ranks[0]},
+             step_ms_rank0={n: ranks[0][n]["step_ms"] for n in ranks[0]},
+             step_ms_one_process={n: alone[n]["step_ms"] for n in alone})
+        del ranks, alone
+        lap("b_ranks_and_plain_2")
+
+        # (a): main_gnn under torchrun's environment at world size 1, and
+        # without a group, one after the other (their step times compared)
+        for label in ("plain_1", "nccl_world_1"):
+            wait_all([cli_run(label)])
+        runs = {}
+        for label in ("plain_1", "nccl_world_1", "plain_2"):
+            with open(os.path.join(tmp, f"{label}.json")) as f:
+                runs[label] = json.load(f)
+        check(runs["nccl_world_1"]["group"]
+              and runs["nccl_world_1"]["backend"] == "nccl"
+              and not runs["plain_1"]["group"], "the runs' groups")
+        losses = {k: [h["train_loss"] for h in r["history"]]
+                  for k, r in runs.items()}
+        plain_equal = losses["plain_1"] == losses["plain_2"]
+        check(losses["nccl_world_1"] == losses["plain_1"] if plain_equal
+              else np.allclose(losses["nccl_world_1"], losses["plain_1"],
+                               rtol=DDP_LOSS_RTOL),
+              f"world size 1 against no group: {losses}")
+        check(runs["nccl_world_1"]["launches"] == runs["plain_1"]["launches"],
+              "the launches differ under the group")
+        emit("ddp_world_1", backend="nccl", losses=losses,
+             plain_runs_bit_equal=plain_equal,
+             history={k: r["history"] for k, r in runs.items()},
+             launches={k: r["launches"] for k, r in runs.items()},
+             step_ms={k: runs[k]["step_ms"]
+                      for k in ("plain_1", "nccl_world_1")},
+             step_batch=DDP_LOCAL_BATCH)
+        lap("a_world_1")
+
+        # (c): the host
+        rates, gen_err = host_rates(tmp)
+        emit("ddp_host", host_cpu=host_cpu(), clips=DDP_HOST_CLIPS,
+             shards=DDP_HOST_SHARDS, records_per_s=rates,
+             data_gen_native_vs_python_max_abs=gen_err)
+        lap("c_host")
+
+    # (d): a replica twice on this card against one
+    state = seeded_model("f32", True).state_dict()
+    one = Predictor(seeded_model("f32", True, state), 64, device)
+    two = Predictor(seeded_model("f32", True, state), 64,
+                    devices=[device, device])
+    want, got = one(request), two(request)
+    times = {"one": [], "two": []}
+    for i in range(5):
+        for name, pred in (("one", one), ("two", two))[:: 1 - 2 * (i % 2)]:
+            start = time.perf_counter()
+            pred(request)
+            times[name].append(time.perf_counter() - start)
+    err = float(np.abs(got - want).max())
+    emit("ddp_serving", devices=2, n=len(request), prob_max_abs_err=err,
+         median_ms={k: 1e3 * statistics.median(v) for k, v in times.items()})
+    check(err <= PROB_ATOL["f32"] and np.array_equal(
+        got.argmax(-1), want.argmax(-1)),
+        f"two replicas' probabilities {err} from one's")
+    del one, two
+    torch.cuda.empty_cache()
+    lap("d_serving")
+    emit("ddp_seconds", **laps)
+
 
 def main():
     phase_env()
@@ -3020,6 +3457,8 @@ def main():
     torch.cuda.empty_cache()
     tf32_off()
     lap("cli")
+    phase_ddp(device, requests[64])
+    lap("ddp")
     phase_radar_build()
     spec_totals, (re, im) = phase_radar_kernel(device)
     dense_totals = phase_radar_dense_kernel(device)

@@ -8,9 +8,9 @@ defaults and artifacts, byte for byte:
     <out>/<benchmark>/{train,val}_data_{bone,joint_motion,bone_motion}.npy
     <out>/<benchmark>/{train,val}_data_<stream>/*.tfrecord
 
-Host code, numpy only: it takes no device. The ``.skeleton`` files are read
-by the Python tokenizer (:func:`..data.skeleton.read_xyz`); the JAX
-package's C++ parser is not ported.
+Host code: it takes no device. The ``.skeleton`` files are read by the C++
+parser of :mod:`..native` (:func:`..data.skeleton.read_xyz`), as in the
+JAX package, and the TFRecords' crcs are taken there too.
 
 Run:
     python -m skeleton_action_recognition_tpu_torch.cli.data_gen \\

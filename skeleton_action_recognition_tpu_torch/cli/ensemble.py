@@ -1,15 +1,16 @@
 """Multi-stream ensemble evaluation: the port's counterpart of the JAX
-package's ``cli/ensemble.py``, on one CUDA device (``main(device="cpu")``
-for the CPU).
+package's ``cli/ensemble.py``, on every visible CUDA device
+(``main(device="cpu")`` for the CPU).
 
 Combines the softmax scores of independently trained stream models (joint /
 bone / joint_motion / bone_motion GNNs, optionally the VirtualRadar
 spectrogram branch) with per-stream weights, over one TFRecord directory of
 joint data: the GNN streams derive theirs from it, the spectrogram branch
 reads the joints. The same flags, defaults and report as the JAX CLI. As in
-``cli/evaluate.py``: one device, no padding of the last batch, the models
-the port has, and a spectrogram stream through the radar and STFT kernels
-(the JAX ensemble builds it with neither).
+``cli/evaluate.py``: a replica on each visible card, each batch split
+across them (as the JAX CLI shards it over every chip), no padding of the
+last batch, the models the port has, and a spectrogram stream through the
+radar and STFT kernels (the JAX ensemble builds it with neither).
 
 Run:
     python -m skeleton_action_recognition_tpu_torch.cli.ensemble \\
@@ -26,6 +27,7 @@ import argparse
 import json
 
 import numpy as np
+import torch
 
 from skeleton_action_recognition_tpu_torch.cli import evaluate
 from skeleton_action_recognition_tpu_torch.data.pipeline import (
@@ -34,16 +36,16 @@ from skeleton_action_recognition_tpu_torch.data.pipeline import (
 )
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     prefetch_to_device,
-    resolve_device,
 )
+from skeleton_action_recognition_tpu_torch.serving import Replicas, replicate
 from skeleton_action_recognition_tpu_torch.train import checkpoint as ckpt_lib
 from skeleton_action_recognition_tpu_torch.train.steps import make_eval_step
 
 
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="Multi-stream ensemble evaluation (PyTorch, one CUDA "
-        "device)"
+        description="Multi-stream ensemble evaluation (PyTorch, every "
+        "visible CUDA device)"
     )
     parser.add_argument("--model", default="stgcn")
     parser.add_argument(
@@ -61,19 +63,27 @@ def get_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def stream_scores(model, ckpt_dir, dataset, device) -> np.ndarray:
+def stream_scores(model, ckpt_dir, dataset, device,
+                  devices=None) -> np.ndarray:
     """Restore a checkpointed model and return its softmax scores over the
-    dataset (iteration order is deterministic: shuffle off)."""
+    dataset (iteration order is deterministic: shuffle off), on ``device``
+    or, given ``devices``, a replica on each and its part of each batch."""
     ckpt_lib.restore_latest_for_eval(model, ckpt_dir)
-    eval_step = make_eval_step(model)
-    return np.concatenate([
-        eval_step(xb).cpu().numpy()
-        for xb, _ in prefetch_to_device(dataset.batches(), device)
-    ])
+    devices = [torch.device(d) for d in (devices or [device])]
+    steps = [make_eval_step(m) for m in replicate(model, devices)]
+    if len(devices) == 1:
+        return np.concatenate([
+            steps[0](xb).cpu().numpy()
+            for xb, _ in prefetch_to_device(dataset.batches(), devices[0])
+        ])
+    scores = Replicas(steps, devices)
+    return np.concatenate([scores(xb).numpy()
+                           for xb, _ in dataset.batches()])
 
 
-def main(argv=None, *, device="cuda") -> dict:
-    """Score every stream on ``device``; prints and returns the report.
+def main(argv=None, *, device="cuda", devices=None) -> dict:
+    """Score every stream on ``device``, or on each of ``devices``
+    (:func:`..evaluate.eval_devices`); prints and returns the report.
     Without a CUDA device, ``device="cuda"`` raises before any data is
     read."""
     arg = get_parser().parse_args(argv)
@@ -85,7 +95,8 @@ def main(argv=None, *, device="cuda") -> dict:
         raise ValueError(
             "--streams, --checkpoints, --weights must have equal length"
         )
-    device = resolve_device(device)
+    devices = evaluate.eval_devices(device, devices)
+    device = devices[0]
 
     labels = None
     combined = None
@@ -112,7 +123,7 @@ def main(argv=None, *, device="cuda") -> dict:
         _, raw_labels = dataset._load_all()
         if labels is None:
             labels = raw_labels
-        scores = stream_scores(model, ckpt, dataset, device)
+        scores = stream_scores(model, ckpt, dataset, device, devices)
         acc = float((scores.argmax(-1) == labels).mean())
         report[f"{stream}_top1"] = round(acc, 4)
         print(f"{stream}: top1 {acc:.4f} (weight {weight})")

@@ -1,6 +1,6 @@
 """Standalone checkpoint evaluation: the port's counterpart of the JAX
-package's ``cli/evaluate.py``, on one CUDA device (``main(device="cpu")``
-for the CPU).
+package's ``cli/evaluate.py``, on every visible CUDA device
+(``main(device="cpu")`` for the CPU).
 
 The same flags with the same defaults, and the same report. It evaluates a
 checkpoint written by the port's trainers: GNN-family models on a TFRecord
@@ -8,8 +8,12 @@ directory (with optional stream derivation, ``--stream``), or
 spectrogram-family models on the ``.npy`` + pickled-label files their
 trainer reads. Differences from the JAX CLI:
 
-* one device; the JAX CLI shards the batch over every chip. Eager PyTorch
-  runs a partial last batch as it is, so nothing is padded;
+* with more than one card visible, a replica of the model (or of its
+  folded predictor) on each and each batch split across them in order
+  (:class:`..serving.Replicas`), as the JAX CLI shards the batch over
+  every chip. Eager PyTorch runs a part or a partial last batch as it
+  is, so nothing is padded (and ``--batch-size`` need not divide by the
+  cards);
 * ``--predictor folded`` serves the folded stock ST-GCN in bfloat16 and
   ``int8`` its W8 form (``models/export.py``), as in JAX; any other model
   raises ``ValueError`` before any data is read (the JAX CLI reads the
@@ -57,6 +61,7 @@ from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     prefetch_to_device,
     resolve_device,
 )
+from skeleton_action_recognition_tpu_torch.serving import Replicas, replicate
 from skeleton_action_recognition_tpu_torch.train import checkpoint as ckpt_lib
 
 
@@ -114,9 +119,24 @@ def build_model(cls, device, num_classes: int, num_filters: int,
     return cls(**kwargs).to(device)
 
 
-def main(argv=None, *, device="cuda") -> dict:
-    """Evaluate on ``device``; prints and returns the report. Without a
-    CUDA device, ``device="cuda"`` raises before any data is read."""
+def eval_devices(device, devices=None) -> list:
+    """The devices an evaluation runs on: ``devices`` where given, else
+    every visible card for a CUDA ``device`` without an index (as the JAX
+    CLIs take ``jax.devices()``), else ``[device]``; each resolved."""
+    if devices is None:
+        device = torch.device(device)
+        count = torch.cuda.device_count() if device.type == "cuda" else 0
+        if device.index is None and count > 1:
+            devices = [torch.device("cuda", i) for i in range(count)]
+        else:
+            devices = [device]
+    return [resolve_device(d) for d in devices]
+
+
+def main(argv=None, *, device="cuda", devices=None) -> dict:
+    """Evaluate on ``device``, or on each of ``devices`` (see
+    :func:`eval_devices`); prints and returns the report. Without a CUDA
+    device, ``device="cuda"`` raises before any data is read."""
     arg = get_parser().parse_args(argv)
     if (arg.test_data_path is None) == (arg.data_path is None):
         raise SystemExit(
@@ -132,7 +152,8 @@ def main(argv=None, *, device="cuda") -> dict:
             "adjacency constants; use --predictor stock for "
             "spectrogram-family models"
         )
-    device = resolve_device(device)
+    devices = eval_devices(device, devices)
+    device = devices[0]
     model = build_model(cls, device, arg.num_classes, arg.num_filters,
                         arg.num_pad_frames)
     if arg.predictor != "stock":
@@ -155,17 +176,23 @@ def main(argv=None, *, device="cuda") -> dict:
             transform=stream_transform(arg.stream),
         )
     step = ckpt_lib.restore_latest_for_eval(model, arg.checkpoint)
-    fwd = model.eval()
+    fwds = [m.eval() for m in replicate(model, devices)]
     if arg.predictor == "folded":
-        fwd = export.fused_stgcn_predictor(model, device=device)
+        fwds = [export.fused_stgcn_predictor(m, device=d)
+                for m, d in zip(fwds, devices)]
     elif arg.predictor == "int8":
-        fwd = export.quantized_stgcn_predictor(model, device=device)
+        fwds = [export.quantized_stgcn_predictor(m, device=d)
+                for m, d in zip(fwds, devices)]
+    if len(devices) == 1:
+        fwd, batches = fwds[0], prefetch_to_device(dataset.batches(), device)
+    else:
+        fwd, batches = Replicas(fwds, devices), dataset.batches()
 
     correct = top5 = total = 0
     with torch.inference_mode():
-        for xb, yb in prefetch_to_device(dataset.batches(), device):
+        for xb, yb in batches:
             logits = fwd(xb).float().cpu().numpy()
-            labels = yb.argmax(-1).cpu().numpy()
+            labels = torch.as_tensor(yb).argmax(-1).cpu().numpy()
             correct += int((logits.argmax(-1) == labels).sum())
             t5 = np.argsort(logits, axis=-1)[:, -5:]
             top5 += int((t5 == labels[:, None]).any(-1).sum())

@@ -1,5 +1,6 @@
 """GNN trainer CLI: the port's counterpart of the JAX package's
-``cli/main_gnn.py``, on one CUDA device (``main(device="cpu")`` for the CPU).
+``cli/main_gnn.py``, on one CUDA device (``main(device="cpu")`` for the
+CPU), or data-parallel on several, one process per card under ``torchrun``.
 
 The same flags with the same defaults, except ``--steps-per-dispatch``
 (a TPU dispatch knob). The flow is the JAX trainer's: TFRecords in, the
@@ -14,9 +15,24 @@ dataclass has: ``--dtype bfloat16``, ``--trainable-adjacency`` and
 ``--fused-sgcn`` with its min-channels are dropped for a model without
 them.
 
+Data parallelism (:class:`..parallel.sharding.DataParallel`): under
+``torchrun`` each process takes the card ``LOCAL_RANK`` and joins an NCCL
+process group. ``--batch-size`` is per card, as in JAX (per chip): the
+global batch is ``--batch-size`` times the world size. Each rank reads its
+own shards of the training set (``records[rank::world]``, seeded ``seed +
+rank``) and runs as many steps an epoch as the rank with the fewest; the
+gradients are summed over the ranks and the BatchNorm statistics taken over
+the global batch, so a step equals one process's step on the whole global
+batch. Every rank reads the whole test set and scores its rows of each
+global batch. Rank 0 prints, writes the TensorBoard summaries and the
+checkpoints. Without ``WORLD_SIZE`` in the environment there is no process
+group.
+
 Run:
     python -m skeleton_action_recognition_tpu_torch.cli.main_gnn \\
         --model stgcn --fused-sgcn --train-data-path ... --test-data-path ...
+    torchrun --nproc_per_node=8 -m \\
+        skeleton_action_recognition_tpu_torch.cli.main_gnn --model stgcn ...
 """
 
 from __future__ import annotations
@@ -35,7 +51,9 @@ from skeleton_action_recognition_tpu_torch.data.pipeline import (
     stream_transform,
 )
 from skeleton_action_recognition_tpu_torch.models import model_class
+from skeleton_action_recognition_tpu_torch.parallel import distributed
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
+    DataParallel,
     prefetch_to_device,
     resolve_device,
 )
@@ -57,13 +75,15 @@ def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description=(
             "Graph Convolutional Neural Network for Skeleton-Based "
-            "Action Recognition (PyTorch, one CUDA device)"
+            "Action Recognition (PyTorch, one CUDA device per process)"
         )
     )
     parser.add_argument("--model", required=True, help="model used to train")
     parser.add_argument("--base-lr", type=float, default=1e-1)
     parser.add_argument("--num-classes", type=int, default=60)
-    parser.add_argument("--batch-size", type=int, default=64)
+    parser.add_argument(
+        "--batch-size", type=int, default=64, help="per-card batch size"
+    )
     parser.add_argument("--num-epochs", type=int, default=80)
     parser.add_argument("--save-freq", type=int, default=10)
     parser.add_argument(
@@ -176,18 +196,30 @@ def model_options(model_cls, arg) -> dict:
 
 def main(argv=None, *, device="cuda") -> list[dict]:
     """Train on ``device``; returns one dict per epoch run: its index, mean
-    train loss, train and test accuracy, and train clips/s. Without a CUDA
-    device, ``device="cuda"`` raises before anything is set up."""
+    train loss, train and test accuracy, and train clips/s (the global
+    batch's, on every rank). Without a CUDA device, ``device="cuda"``
+    raises before anything is set up. With ``WORLD_SIZE`` set, the process
+    joins its process group first (NCCL for a CUDA ``device``, gloo for the
+    CPU) and raises if it cannot; a CUDA ``device`` without an index is
+    then card ``LOCAL_RANK``."""
     arg = get_parser().parse_args(argv)
     model_cls = model_class(arg.model)
     device = resolve_device(device)
+    distributed.maybe_initialize_distributed(
+        "nccl" if device.type == "cuda" else "gloo")
+    device = distributed.local_device(device)
+    dp = DataParallel()
+    lead = dp.rank == 0
+    say = print if lead else (lambda *args, **kwargs: None)
     set_precision(arg.precision)
-    print(f"device: {device}")
+    say(f"device: {device}, {dp.world_size} process(es)")
+    global_batch = arg.batch_size * dp.world_size
 
     log_dir = build_log_dir(arg)
     arg.log_dir = log_dir
-    config_lib.save_arg(vars(arg), log_dir)
-    config_lib.snapshot_sources(log_dir, [model_cls])
+    if lead:
+        config_lib.save_arg(vars(arg), log_dir)
+        config_lib.snapshot_sources(log_dir, [model_cls])
 
     model = model_cls(
         **model_options(model_cls, arg), device=device,
@@ -195,19 +227,24 @@ def main(argv=None, *, device="cuda") -> list[dict]:
     )
 
     transform = stream_transform(arg.stream)
+    # each rank reads its own shards, arg.batch_size rows of each global
+    # batch; every rank runs the fewest steps any rank has (collectives)
     train_data = TFRecordDataset(
         arg.train_data_path,
         batch_size=arg.batch_size,
         num_classes=arg.num_classes,
         shuffle=True,
         drop_remainder=True,
-        seed=arg.seed,
+        seed=arg.seed + dp.rank,
+        process_index=dp.rank,
+        process_count=dp.world_size,
         transform=transform,
     )
-    steps_per_epoch = len(train_data)
+    steps_per_epoch = dp.min_over_ranks(len(train_data))
+    # every rank reads the whole test set, in global batches
     test_data = TFRecordDataset(
         arg.test_data_path,
-        batch_size=arg.batch_size,
+        batch_size=global_batch,
         num_classes=arg.num_classes,
         shuffle=False,
         transform=transform,
@@ -225,17 +262,21 @@ def main(argv=None, *, device="cuda") -> list[dict]:
     manager = ckpt_lib.CheckpointManager(os.path.join(log_dir, "checkpoints"))
     start_epoch = 0
     if arg.resume:
+        distributed.barrier()
         extra, step = manager.restore(model, optimizer)
         if step is not None:
             start_epoch = (extra or {}).get("epoch", 0) + 1
-            print(f"resumed from step {step} (epoch {start_epoch})")
+            say(f"resumed from step {step} (epoch {start_epoch})")
+    dp.broadcast_module(model)
 
     train_step = steps_lib.make_train_step(
-        model, optimizer, arg.batch_size, arg.l2_weight
+        model, optimizer, global_batch, arg.l2_weight,
+        dp=dp if dp.active else None,
     )
     eval_step = steps_lib.make_eval_step(model)
 
-    writer = tb_writer.SummaryWriter(log_dir)
+    writer = (tb_writer.SummaryWriter(log_dir) if lead
+              else tb_writer.NullWriter())
     ce_m = metrics_lib.Mean()
     acc_m = metrics_lib.Accuracy()
     acc5_m = metrics_lib.Accuracy()
@@ -252,17 +293,18 @@ def main(argv=None, *, device="cuda") -> list[dict]:
             train_step(xs, ys, False)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-        os.makedirs(arg.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(
-            os.path.join(arg.profile_dir, "train_step.trace.json")
-        )
-        print(f"profiler trace written to {arg.profile_dir}")
+        if lead:
+            os.makedirs(arg.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(arg.profile_dir, "train_step.trace.json")
+            )
+            print(f"profiler trace written to {arg.profile_dir}")
 
     train_iter = 0
     test_iter = 0
     history = []
     for epoch in range(start_epoch, arg.num_epochs):
-        print(f"Epoch: {epoch + 1}")
+        say(f"Epoch: {epoch + 1}")
         t0 = time.time()
         samples = 0
         epoch_loss = metrics_lib.Mean()
@@ -289,7 +331,7 @@ def main(argv=None, *, device="cuda") -> list[dict]:
             ce_m.reset(), acc_m.reset(), acc5_m.reset()
             train_iter += 1
         dt = time.time() - t0
-        print(
+        say(
             f"  train: {samples} clips in {dt:.1f}s "
             f"({samples / max(dt, 1e-9):.1f} clips/s)"
         )
@@ -297,13 +339,17 @@ def main(argv=None, *, device="cuda") -> list[dict]:
         cm = metrics_lib.ConfusionMatrix(arg.num_classes)
         epoch_acc = metrics_lib.Accuracy()
         epoch_acc5 = metrics_lib.Accuracy()
+        # each rank scores its rows of a global batch (the last one padded
+        # to a multiple of the ranks), and every rank gathers them all
+        local = ((dp.local_rows(dp.pad_rows(xb)), yb)
+                 for xb, yb in test_data.batches())
         pending_eval = [
-            (eval_step(xs), ys)
-            for xs, ys in prefetch_to_device(test_data.batches(), device)
+            (dp.gather_rows(eval_step(xs)), ys)
+            for xs, ys in prefetch_to_device(local, device)
         ]
         for probs, ys in pending_eval:
-            probs = probs.cpu().numpy()
             labels = ys.cpu().numpy().argmax(-1)
+            probs = probs.cpu().numpy()[:len(labels)]
             preds = probs.argmax(-1)
             top5 = np.argsort(probs, axis=-1)[:, -5:]
             epoch_acc.update(int((preds == labels).sum()), len(labels))
@@ -320,7 +366,7 @@ def main(argv=None, *, device="cuda") -> list[dict]:
         writer.add_scalar(
             "epoch_test_acc_top_5", epoch_acc5.result(), epoch
         )
-        print(
+        say(
             f"  test: top1 {epoch_acc.result():.4f} "
             f"top5 {epoch_acc5.result():.4f}"
         )
@@ -332,16 +378,19 @@ def main(argv=None, *, device="cuda") -> list[dict]:
             "train_clips_per_s": samples / max(dt, 1e-9),
         })
 
-        if (epoch + 1) % arg.save_freq == 0:
+        if (epoch + 1) % arg.save_freq == 0 and lead:
             png, h, w = confusion_lib.confusion_matrix_png(cm.result())
             writer.add_image_png("Test Confusion Matrix", png, h, w, epoch)
             manager.save(epoch, model, optimizer, {"epoch": epoch})
             print(f"  checkpoint saved at epoch {epoch + 1}")
 
-    manager.save(
-        arg.num_epochs, model, optimizer, {"epoch": arg.num_epochs - 1}
-    )
+    if lead:
+        manager.save(
+            arg.num_epochs, model, optimizer, {"epoch": arg.num_epochs - 1}
+        )
     writer.close()
+    # no rank returns before rank 0's last checkpoint is written
+    distributed.barrier()
     return history
 
 

@@ -1,6 +1,7 @@
 """Spectrogram trainer CLI: the port's counterpart of the JAX package's
 ``cli/main_spectrogram.py``, on one CUDA device (``main(device="cpu")``
-for the CPU).
+for the CPU), or data-parallel on several, one process per card under
+``torchrun``.
 
 The same flags with the same defaults, except ``--steps-per-dispatch`` (a
 TPU dispatch knob). The flow is the JAX trainer's: ``.npy`` clips and
@@ -27,9 +28,19 @@ torch's ``torch.backends.cudnn.allow_tf32`` leaves them (on by default:
 JAX's default convolution precision). The radar and STFT kernels compute
 in float32 on the CUDA cores.
 
+Data parallelism, as in ``cli/main_gnn.py``: ``--batch-size`` is per card
+and the global batch is ``--batch-size`` times the world size. Every rank
+draws the same global batch from the same seeded ``NumpyDataset`` and
+trains on its rows of it (the JAX trainer's one-process semantics over
+several devices); the gradients are summed over the ranks and the
+BatchNorm statistics taken over the global batch. Rank 0 prints and writes
+the summaries and checkpoints.
+
 Run:
     python -m skeleton_action_recognition_tpu_torch.cli.main_spectrogram \\
         --data-path 'DIR/{}_data_joint.npy' --label-path 'DIR/{}_label.pkl'
+    torchrun --nproc_per_node=8 -m \\
+        skeleton_action_recognition_tpu_torch.cli.main_spectrogram ...
 """
 
 from __future__ import annotations
@@ -43,7 +54,9 @@ import numpy as np
 import torch
 
 from skeleton_action_recognition_tpu_torch.data.pipeline import NumpyDataset
+from skeleton_action_recognition_tpu_torch.parallel import distributed
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
+    DataParallel,
     prefetch_to_device,
     resolve_device,
 )
@@ -65,12 +78,14 @@ def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description=(
             "Skeleton-Based Action Recognition from VirtualRadar "
-            "spectrograms (PyTorch, one CUDA device)"
+            "spectrograms (PyTorch, one CUDA device per process)"
         )
     )
     parser.add_argument("--base-lr", type=float, default=1e-1)
     parser.add_argument("--num-classes", type=int, default=60)
-    parser.add_argument("--batch-size", type=int, default=64)
+    parser.add_argument(
+        "--batch-size", type=int, default=64, help="per-card batch size"
+    )
     parser.add_argument("--num-epochs", type=int, default=80)
     parser.add_argument("--num-filters", type=int, default=64)
     parser.add_argument("--log-dir", default="logs/")
@@ -170,21 +185,32 @@ def main(argv=None, *, device="cuda") -> list[dict]:
     """Train on ``device``; returns one dict per epoch run: its index, the
     train and validation loss and accuracy, the train clips/s and
     ``radar_lambda`` after the epoch. Without a CUDA device,
-    ``device="cuda"`` raises before anything is set up."""
+    ``device="cuda"`` raises before anything is set up. With
+    ``WORLD_SIZE`` set, the process joins its process group first, as
+    ``main_gnn.main`` does."""
     arg = get_parser().parse_args(argv)
     device = resolve_device(device)
-    print(f"device: {device}")
+    distributed.maybe_initialize_distributed(
+        "nccl" if device.type == "cuda" else "gloo")
+    device = distributed.local_device(device)
+    dp = DataParallel()
+    lead = dp.rank == 0
+    say = print if lead else (lambda *args, **kwargs: None)
+    say(f"device: {device}, {dp.world_size} process(es)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    global_batch = arg.batch_size * dp.world_size
 
     log_dir = build_log_dir(arg)
     arg.log_dir = log_dir
-    config_lib.save_arg(vars(arg), log_dir)
+    if lead:
+        config_lib.save_arg(vars(arg), log_dir)
 
     module = importlib.import_module(
         "skeleton_action_recognition_tpu_torch.models."
         + arg.model_type.strip()
     )
-    config_lib.snapshot_sources(log_dir, [module.Model])
+    if lead:
+        config_lib.snapshot_sources(log_dir, [module.Model])
     model_kwargs = dict(
         num_classes=arg.num_classes,
         num_filters=arg.num_filters,
@@ -203,7 +229,7 @@ def main(argv=None, *, device="cuda") -> list[dict]:
         part: NumpyDataset(
             arg.data_path.format(part),
             arg.label_path.format(part),
-            batch_size=arg.batch_size,
+            batch_size=global_batch,
             num_classes=arg.num_classes,
             shuffle=(part == "train"),
             drop_remainder=(part == "train"),
@@ -225,18 +251,27 @@ def main(argv=None, *, device="cuda") -> list[dict]:
     manager = ckpt_lib.CheckpointManager(os.path.join(log_dir, "checkpoints"))
     start_epoch = 0
     if arg.resume:
+        distributed.barrier()
         extra, step = _restore(manager, model, optimizer)
         if step is not None:
             start_epoch = (extra or {}).get("epoch", 0) + 1
-            print(f"resumed from checkpoint {step} (epoch {start_epoch})")
+            say(f"resumed from checkpoint {step} (epoch {start_epoch})")
+    dp.broadcast_module(model)
 
     def train_step_for(train_lambda: bool, train_loc: bool):
         return steps_lib.make_radar_train_step(
-            model, optimizer, arg.batch_size, train_lambda, train_loc
+            model, optimizer, global_batch, train_lambda, train_loc,
+            dp=dp if dp.active else None,
         )
 
+    def local(batches):
+        """This rank's rows of each global batch."""
+        for xb, yb in batches:
+            yield dp.local_rows(xb), dp.local_rows(yb)
+
     eval_step = steps_lib.make_eval_step(model)
-    writer = tb_writer.SummaryWriter(log_dir)
+    writer = (tb_writer.SummaryWriter(log_dir) if lead
+              else tb_writer.NullWriter())
 
     if arg.profile_dir:
         from torch.profiler import ProfilerActivity, profile
@@ -245,21 +280,22 @@ def main(argv=None, *, device="cuda") -> list[dict]:
         if device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         (xs, ys), = prefetch_to_device(
-            [next(iter(datasets["train"].batches()))], device
+            local([next(iter(datasets["train"].batches()))]), device
         )
         with profile(activities=activities) as prof:
             train_step_for(False, False)(xs, ys)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-        os.makedirs(arg.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(
-            os.path.join(arg.profile_dir, "train_step.trace.json")
-        )
-        print(f"profiler trace written to {arg.profile_dir}")
+        if lead:
+            os.makedirs(arg.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(arg.profile_dir, "train_step.trace.json")
+            )
+            print(f"profiler trace written to {arg.profile_dir}")
 
     history = []
     for epoch in range(start_epoch, arg.num_epochs):
-        print(f"Epoch {epoch + 1}/{arg.num_epochs}")
+        say(f"Epoch {epoch + 1}/{arg.num_epochs}")
         train_step = train_step_for(epoch > arg.lambda_train_epoch,
                                     epoch > arg.loc_train_epoch)
         record = {"epoch": epoch}
@@ -273,7 +309,7 @@ def main(argv=None, *, device="cuda") -> list[dict]:
                 # metrics stay on the device until the epoch ends: a fetch
                 # per step would stall the device after every step
                 pending = [train_step(xs, ys) for xs, ys in
-                           prefetch_to_device(data.batches(), device)]
+                           prefetch_to_device(local(data.batches()), device)]
                 for i, m in enumerate(pending):
                     m = {k: v.item() for k, v in m.items()}
                     loss_m.update(m["loss"])
@@ -287,13 +323,14 @@ def main(argv=None, *, device="cuda") -> list[dict]:
                 pending = []
                 for xb, yb in data.batches():
                     n = len(xb)
-                    if n < arg.batch_size:
+                    if n < global_batch:
                         # pad the last partial batch to the batch size, as
                         # the JAX trainer does; the pad rows are cut below
                         xb = np.concatenate([xb, np.zeros(
-                            (arg.batch_size - n,) + xb.shape[1:], xb.dtype)])
-                    ((xs,),) = prefetch_to_device([(xb,)], device)
-                    pending.append((eval_step(xs), n, yb))
+                            (global_batch - n,) + xb.shape[1:], xb.dtype)])
+                    ((xs,),) = prefetch_to_device([(dp.local_rows(xb),)],
+                                                  device)
+                    pending.append((dp.gather_rows(eval_step(xs)), n, yb))
                 for i, (probs, n, yb) in enumerate(pending):
                     probs = probs.cpu().numpy()[:n]
                     preds = probs.argmax(-1)
@@ -314,7 +351,7 @@ def main(argv=None, *, device="cuda") -> list[dict]:
                               loss_m.result(), epoch)
             writer.add_scalar(f"{phase}_epoch_acc", acc_m.result(), epoch)
             dt = time.time() - t0
-            print(
+            say(
                 f"{phase} Loss: {loss_m.result():.4f} "
                 f"Acc: {acc_m.result():.4f} "
                 f"({dt:.1f}s, {acc_m.count / max(dt, 1e-9):.1f} clips/s)"
@@ -326,13 +363,16 @@ def main(argv=None, *, device="cuda") -> list[dict]:
         # the staged unfreeze must be observable: one scalar fetch an epoch
         lam = model.virtual_radar.radar_lambda.item()
         writer.add_scalar("radar_lambda", lam, epoch)
-        print(f"radar_lambda: {lam:.6g}")
+        say(f"radar_lambda: {lam:.6g}")
         record["radar_lambda"] = lam
         history.append(record)
-        if (epoch + 1) % arg.save_freq == 0 or epoch == arg.num_epochs - 1:
+        last = epoch == arg.num_epochs - 1
+        if ((epoch + 1) % arg.save_freq == 0 or last) and lead:
             manager.save(epoch, model, optimizer, {"epoch": epoch})
             print(f"  checkpoint saved at epoch {epoch + 1}")
     writer.close()
+    # no rank returns before rank 0's last checkpoint is written
+    distributed.barrier()
     return history
 
 

@@ -22,6 +22,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from skeleton_action_recognition_tpu_torch import native
+
 # Split constants (gen_joint_data.py:9-16).
 TRAINING_SUBJECTS = (
     1, 2, 4, 5, 8, 9, 13, 14, 15, 16, 17, 18, 19, 25, 27, 28, 31, 34, 35, 38,
@@ -93,19 +95,29 @@ def read_xyz(
     max_body: int = MAX_BODY_KINECT,
     num_joint: int = NUM_JOINTS,
     max_body_true: int = MAX_BODY_TRUE,
+    use_native: bool = True,
 ) -> np.ndarray:
     """Parse + select the ``max_body_true`` highest-energy bodies.
 
-    Returns ``(3, T, V, max_body_true)`` like ``gen_joint_data.py:76-93``.
-    This is the JAX package's Python tokenizer route; its C++ parser
-    (``native/``, ~100x faster) is not ported, so the port parses at the
-    Python route's rate.
+    Returns ``(3, T, V, max_body_true)`` float64 like
+    ``gen_joint_data.py:76-93``. By default the C++ parser of
+    :mod:`..native` reads the file (its coordinates rounded to float32, as
+    the JAX package's native route gives them); ``use_native=False`` takes
+    the Python tokenizer (float64 coordinates).
     """
-    num_frames, frames = parse_skeleton_file(path, num_joint)
-    data = np.zeros((max_body, num_frames, num_joint, 3), np.float64)
-    for t, bodies in enumerate(frames):
-        n = min(len(bodies), max_body)
-        data[:n, t] = bodies[:n]
+    if use_native:
+        with open(path, "rb") as f:
+            text = f.read()
+        num_frames = int(text.split(None, 1)[0])
+        data = native.parse_skeleton(
+            text, max_body, max(num_frames, 1), num_joint
+        ).astype(np.float64)
+    else:
+        num_frames, frames = parse_skeleton_file(path, num_joint)
+        data = np.zeros((max_body, num_frames, num_joint, 3), np.float64)
+        for t, bodies in enumerate(frames):
+            n = min(len(bodies), max_body)
+            data[:n, t] = bodies[:n]
 
     energy = np.array([nonzero_std_energy(b) for b in data])
     order = energy.argsort()[::-1][:max_body_true]

@@ -10,12 +10,13 @@ bytes written are the same. Record framing:
 
 with ``masked = ((crc >> 15 | crc << 17) + 0xa282ead8) mod 2^32``.
 
-The JAX package checks the crc in C++ (``native/``), which the port does
-not import, and its numpy fallback walks one byte at a time. Here crc32c
-is vectorised with numpy (:func:`crc32c_rows`): the records of a shard are
-checked together, each split into chunks whose crcs are taken side by side
-and then combined, so a shard of NTU clips checks at thousands of records
-a second instead of a few.
+As in the JAX package, :func:`crc32c`, :func:`count_records` and
+:func:`decode_shard` go through the C++ runtime (:mod:`..native`) by
+default; ``use_native=False`` takes the numpy route. A failed native build
+raises rather than falling back. The numpy crc32c is vectorised
+(:func:`crc32c_rows`): :class:`TFRecordReader` checks the records of a
+shard together, each split into chunks whose crcs are taken side by side
+and then combined.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from skeleton_action_recognition_tpu_torch import native
 from skeleton_action_recognition_tpu_torch.data import proto
 
 _MASK_DELTA = 0xA282EAD8
@@ -104,7 +106,9 @@ def crc32c_rows(rows: np.ndarray) -> np.ndarray:
     return state ^ np.uint32(0xFFFFFFFF)
 
 
-def crc32c(data: bytes) -> int:
+def crc32c(data: bytes, use_native: bool = True) -> int:
+    if use_native:
+        return native.crc32c(data)
     return int(crc32c_rows(np.frombuffer(data, np.uint8)[None])[0])
 
 
@@ -200,9 +204,11 @@ class TFRecordReader:
                 yield buf[offset: offset + length]
 
 
-def count_records(path) -> int:
+def count_records(path, use_native: bool = True) -> int:
     """Record count of one shard by walking the framing (no crc, no
     payload decode)."""
+    if use_native:
+        return native.count_records(str(path))
     count = 0
     with open(path, "rb") as f:
         while True:
@@ -215,13 +221,38 @@ def count_records(path) -> int:
     return count
 
 
-def decode_shard(path) -> Tuple[np.ndarray, np.ndarray]:
+def first_payload(path) -> Optional[bytes]:
+    """The payload of a shard's first record (its crcs unchecked), or None
+    for an empty shard."""
+    with open(path, "rb") as f:
+        header = f.read(12)
+        if len(header) < 12:
+            return None
+        (length,) = struct.unpack("<Q", header[:8])
+        payload = f.read(length)
+    if len(payload) < length:
+        raise IOError(f"{path}: truncated record")
+    return payload
+
+
+def decode_shard(path, sample_shape=None,
+                 use_native: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """Decode one whole shard -> ``(feats (N, *shape) f32, labels (N,)
-    i64)``, crcs checked; every record has the first record's shape."""
+    i64)``, crcs checked; every record holds ``sample_shape`` (None: the
+    first record's shape). The native decoder takes the whole shard in one
+    call, without the GIL, so shards decode in parallel from threads."""
+    if sample_shape is None:
+        first = first_payload(path)
+        if first is None:
+            return np.empty((0,), np.float32), np.empty((0,), np.int64)
+        sample_shape = parse_example(first)[0].shape
+    if use_native:
+        return native.decode_tfrecord(
+            str(path), count_records(path), tuple(sample_shape))
     parsed = [parse_example(p) for p in TFRecordReader([str(path)])]
-    if not parsed:
-        return np.empty((0,), np.float32), np.empty((0,), np.int64)
-    feats = np.stack([f for f, _ in parsed]).astype(np.float32, copy=False)
+    feats = np.empty((len(parsed),) + tuple(sample_shape), np.float32)
+    for i, (f, _) in enumerate(parsed):
+        feats[i] = f.reshape(sample_shape)
     labels = np.asarray([label for _, label in parsed], np.int64)
     return feats, labels
 

@@ -309,8 +309,8 @@ class FusedSTGCNPredictor:
 
 def fused_stgcn_predictor(model, dtype=torch.bfloat16, device="cuda"):
     """The folded predictor of the stock ST-GCN ``model`` in ``dtype``
-    (the JAX factory's ``jit`` and ``mesh`` do not apply: eager, one
-    device)."""
+    on ``device`` (the JAX factory's ``jit`` does not apply: eager; its
+    ``mesh`` is ``Predictor(devices=...)``'s replica a device)."""
     return FusedSTGCNPredictor(model, dtype, device)
 
 

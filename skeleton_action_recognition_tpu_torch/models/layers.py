@@ -14,6 +14,10 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from skeleton_action_recognition_tpu_torch.parallel.distributed import (
+    global_means,
+)
+
 EPSILON = 1e-3
 MOMENTUM = 0.99
 L2_WEIGHT = 1e-4
@@ -61,7 +65,9 @@ class BatchNorm(nn.Module):
     * eval: ``(x - running_mean) * rsqrt(running_var + epsilon) * weight +
       bias``;
     * train: the same with the batch's statistics, taken in float32 over
-      every axis but the last, ``var = max(0, E[x^2] - E[x]^2)`` (biased),
+      every axis but the last, ``var = max(0, E[x^2] - E[x]^2)`` (biased;
+      in a process group ``E`` is over every rank's rows, as XLA takes it
+      over a sharded batch: :func:`..parallel.distributed.global_means`),
       and the running statistics updated as ``momentum * running + (1 -
       momentum) * batch``. ``torch.nn.functional.batch_norm`` differs on
       both: its momentum weighs the batch, and its running variance is
@@ -91,8 +97,9 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, sq = global_means(xf.mean(axes), (xf * xf).mean(axes),
+                                    count=xf.numel() // xf.shape[-1])
+            var = torch.clamp(sq - mean * mean, min=0.0)
             self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

@@ -16,7 +16,9 @@ statistics from the fused spatial conv's epilogue
 (:class:`StatsTemporalConv`), and ``fused_tconv`` runs BN1's normalize, the
 ReLU, the temporal conv and BN2's statistics in one kernel on the stride-1
 blocks (:class:`FusedTemporalConv`). Both keep ``TemporalConv``'s state
-dict.
+dict. In a process group every batch statistic, the kernels' sums
+included, is taken over the global batch
+(:func:`..parallel.distributed.global_means`).
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ from skeleton_action_recognition_tpu_torch.models.layers import (
 from skeleton_action_recognition_tpu_torch.ops.tconv import (
     TAPS,
     affine_relu_tconv,
+)
+from skeleton_action_recognition_tpu_torch.parallel.distributed import (
+    global_means,
 )
 
 IN_CHANNELS = 3  # x, y, z of each joint
@@ -157,15 +162,17 @@ class FusedTemporalConv(nn.Module):
                                                bn1.running_var)
             return u * scale2 + shift2
         xf = x.float()
-        mean = xf.mean((0, 1, 2))
-        var = (xf * xf).mean((0, 1, 2)) - mean * mean
+        axes = (0, 1, 2)
+        mean, sq = global_means(xf.mean(axes), (xf * xf).mean(axes),
+                                count=xf.numel() // xf.shape[-1])
+        var = sq - mean * mean
         scale1, shift1 = bn0.folded_affine(mean, var)
         u, s2, ss2 = affine_relu_tconv(
             x.to(cd).contiguous(), scale1, shift1, conv.weight, conv.bias
         )
         n = u.numel() // u.shape[-1]
-        mean2 = s2 / n
-        var2 = ss2 / n - mean2 * mean2
+        mean2, sq2 = global_means(s2 / n, ss2 / n, count=n)
+        var2 = sq2 - mean2 * mean2
         bn0.update_running(mean, var)
         bn1.update_running(mean2, var2)
         scale2, shift2 = bn1.folded_affine(mean2, var2)
@@ -198,8 +205,8 @@ class StatsTemporalConv(nn.Module):
         bn0 = self.BatchNorm_0
         if self.training:
             n = x.numel() // x.shape[-1]
-            mean = s / n
-            var = torch.clamp(ss / n - mean * mean, min=0.0)
+            mean, sq = global_means(s / n, ss / n, count=n)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             bn0.update_running(mean, var)
         else:
             mean, var = bn0.running_mean, bn0.running_var

@@ -1,2 +1,3 @@
-"""Host-to-device input staging (single device; data parallelism across
-cards is not ported yet)."""
+"""Data parallelism across processes, one per card (``distributed``:
+the process group; ``sharding``: ``DataParallel``), and host-to-device
+input staging."""

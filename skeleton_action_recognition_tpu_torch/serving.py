@@ -1,13 +1,17 @@
 """Serving: a softmax predictor over a model in eval mode.
 
-Counterpart of ``skeleton_action_recognition_tpu/serving.py``'s unsharded
+Counterpart of ``skeleton_action_recognition_tpu/serving.py``'s
 ``Predictor``, with its ``from_checkpoint``. For the stock ST-GCN,
 :mod:`.models.export` also provides the folded predictors (BatchNorms and
 the adjacency stack folded into the products, in bfloat16, W8 or W8A8):
-pass ``fused=True`` and ``quantize``.
+pass ``fused=True`` and ``quantize``. Where the JAX predictor shards a
+request over a mesh, this one takes ``devices``: a replica on each, a
+request split across them in order (:class:`Replicas`).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -17,6 +21,37 @@ from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     resolve_device,
 )
 from skeleton_action_recognition_tpu_torch.train import checkpoint as ckpt_lib
+
+
+class Replicas:
+    """One forward on each of several devices: a batch's rows are split in
+    order into as many contiguous parts of ``ceil(n / len(forwards))``
+    rows (the last ones shorter or absent), each part runs on its device,
+    and the outputs come back concatenated on the CPU. Every part is
+    launched before any is read back, so the devices run at once."""
+
+    def __init__(self, forwards, devices):
+        if len(forwards) != len(devices) or not forwards:
+            raise ValueError("one forward per device, at least one")
+        self.forwards = list(forwards)
+        self.devices = [torch.device(d) for d in devices]
+
+    def __call__(self, x) -> torch.Tensor:
+        x = torch.as_tensor(np.asarray(x, np.float32))
+        size = -(-len(x) // len(self.forwards))
+        outs = [
+            fwd(part.to(device))
+            for fwd, device, part in zip(self.forwards, self.devices,
+                                         x.split(max(size, 1)))
+        ]
+        return torch.cat([out.cpu() for out in outs])
+
+
+def replicate(model, devices) -> list:
+    """``model`` on ``devices[0]`` and a copy of it on each further device
+    (a device named twice gets two copies)."""
+    first = model.to(devices[0])
+    return [first] + [copy.deepcopy(first).to(d) for d in devices[1:]]
 
 
 class Predictor:
@@ -29,14 +64,27 @@ class Predictor:
     bfloat16, or with ``quantize='w8'`` (int8 weights) or ``'w8a8'`` (int8
     weights and activations). It is not the model's ``fused_sgcn`` option,
     which runs the unfolded model's spatial conv through the CUDA kernel:
-    the folded predictors run no kernel of the port."""
+    the folded predictors run no kernel of the port.
+
+    ``devices`` (a list; None: ``[device]``) serves a replica of the model
+    (or of its folded predictor) on each device, a request split across
+    them in order; ``max_batch`` must divide by their number, as the JAX
+    predictor's by its mesh's devices."""
 
     def __init__(self, model, max_batch: int = 64, device="cuda",
-                 fused: bool = False, quantize: str | None = None):
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+                 fused: bool = False, quantize: str | None = None,
+                 devices=None):
+        devices = [resolve_device(d) for d in (devices or [device])]
+        if max_batch % len(devices):
+            raise ValueError(
+                f"max_batch {max_batch} must divide the {len(devices)} "
+                "devices"
+            )
+        self.device = devices[0]
+        models = [m.eval() for m in replicate(model, devices)]
+        self.model = models[0]
         self.max_batch = max_batch
-        self._forward = self.model
+        forwards = models
         if quantize is not None and not fused:
             raise ValueError("quantize requires fused=True")
         if fused:
@@ -50,25 +98,28 @@ class Predictor:
                     f"quantize must be None, 'w8' (int8 weights) or "
                     f"'w8a8' (int8 weights+activations), got {quantize!r}"
                 )
-            self._forward = factory(self.model, device=self.device)
+            forwards = [factory(m, device=d) for m, d in zip(models, devices)]
+        self._forward = forwards[0]
+        self._replicas = (Replicas(forwards, devices) if len(devices) > 1
+                          else None)
 
     @classmethod
     def from_checkpoint(cls, model, checkpoint_dir: str, max_batch: int = 64,
                         device="cuda", fused: bool = False,
-                        quantize: str | None = None) -> "Predictor":
+                        quantize: str | None = None,
+                        devices=None) -> "Predictor":
         """A predictor over ``model`` holding the parameters and BatchNorm
         statistics of the latest checkpoint in ``checkpoint_dir``, as the
         port's trainers write them; ``FileNotFoundError`` when there is
         none. The JAX ``from_checkpoint`` also takes ``sample_input``,
         which flax needs to initialize the model and a torch module does
-        not, and ``mesh``: serving over several devices is not ported.
-        ``fused`` and ``quantize`` select the predictor as in the
-        constructor (the JAX ``from_checkpoint`` serves the unfolded model
-        alone)."""
+        not; ``devices`` takes the place of its ``mesh``. ``fused`` and
+        ``quantize`` select the predictor as in the constructor (the JAX
+        ``from_checkpoint`` serves the unfolded model alone)."""
         device = resolve_device(device)
         ckpt_lib.restore_latest_for_eval(model, checkpoint_dir)
         return cls(model, max_batch=max_batch, device=device, fused=fused,
-                   quantize=quantize)
+                   quantize=quantize, devices=devices)
 
     def __call__(self, x) -> np.ndarray:
         """Predict class probabilities for ``(n, 3, T, V, M)`` clips,
@@ -81,5 +132,8 @@ class Predictor:
                 f"batch {len(x)} exceeds max_batch {self.max_batch}"
             )
         with torch.inference_mode():
-            logits = self._forward(torch.from_numpy(x).to(self.device))
+            if self._replicas is None:
+                logits = self._forward(torch.from_numpy(x).to(self.device))
+            else:
+                logits = self._replicas(x)
             return torch.softmax(logits.float(), dim=-1).cpu().numpy()

@@ -37,20 +37,29 @@ def mask_gradients_by_name(model, needle: str, enabled) -> None:
 
 def make_train_step(
     model, optimizer, global_batch_size: int, l2_weight: float = 0.0,
-    freeze_name: str = "adjacency_matrix",
+    freeze_name: str = "adjacency_matrix", dp=None,
 ):
     """Build ``step(x, y_onehot, train_adj) -> metrics``: one optimizer step
     of ``model`` in training mode on a batch. ``metrics`` holds device
     scalars (loss, top-1 and top-5 correct counts, count), so that a caller
     can fetch them after many steps without stalling the device each
-    step."""
+    step.
+
+    With a :class:`..parallel.sharding.DataParallel` ``dp``, ``x`` and
+    ``y`` are this rank's rows of a global batch of ``global_batch_size``:
+    the gradients are summed over the ranks before the adjacency freeze
+    and the update, and the metrics are the global batch's sums."""
+    world_size = 1 if dp is None else dp.world_size
 
     def step(x, y, train_adj):
         model.train()
         logits = model(x)
-        loss = total_loss(logits, y, model, global_batch_size, l2_weight)
+        loss = total_loss(logits, y, model, global_batch_size, l2_weight,
+                          world_size)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if dp is not None:
+            dp.all_reduce_gradients(model)
         mask_gradients_by_name(model, freeze_name, train_adj)
         optimizer.step()
         with torch.no_grad():
@@ -58,12 +67,13 @@ def make_train_step(
             top1 = (logits.argmax(-1) == labels).sum()
             top5_preds = logits.topk(min(5, logits.shape[-1]), dim=-1)[1]
             top5 = (top5_preds == labels[:, None]).any(-1).sum()
-        return {
+        metrics = {
             "loss": loss.detach(),
             "correct": top1,
             "correct_top5": top5,
             "count": torch.tensor(x.shape[0], dtype=torch.int32),
         }
+        return metrics if dp is None else dp.sum_metrics(metrics)
 
     return step
 
@@ -81,7 +91,7 @@ def make_eval_step(model):
 
 def make_radar_train_step(model, optimizer, global_batch_size: int,
                           train_lambda: bool = False,
-                          train_loc: bool = False):
+                          train_loc: bool = False, dp=None):
     """Build ``step(x, y_onehot) -> metrics`` for the spectrogram model:
     the mean cross-entropy ``sum(-log_softmax(logits) . y) /
     global_batch_size`` (torch ``CrossEntropyLoss``), one step of
@@ -92,7 +102,8 @@ def make_radar_train_step(model, optimizer, global_batch_size: int,
     ``train_lambda`` (``train_loc``). The step sets their
     ``requires_grad`` on every call, so that steps of two phases may share
     a model: a frozen parameter gets no gradient and no update, and when
-    both are frozen no radar or STFT backward runs at all."""
+    both are frozen no radar or STFT backward runs at all. ``dp`` as in
+    :func:`make_train_step`."""
 
     def step(x, y):
         model.train()
@@ -105,13 +116,16 @@ def make_radar_train_step(model, optimizer, global_batch_size: int,
         loss = -(torch.log_softmax(logits, -1) * y).sum() / global_batch_size
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if dp is not None:
+            dp.all_reduce_gradients(model)
         optimizer.step()
         with torch.no_grad():
             correct = (logits.argmax(-1) == y.argmax(-1)).sum()
-        return {
+        metrics = {
             "loss": loss.detach(),
             "correct": correct,
             "count": torch.tensor(x.shape[0], dtype=torch.int32),
         }
+        return metrics if dp is None else dp.sum_metrics(metrics)
 
     return step

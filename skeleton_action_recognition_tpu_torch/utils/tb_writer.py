@@ -83,3 +83,18 @@ class SummaryWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class NullWriter:
+    """A :class:`SummaryWriter` that writes nothing: the trainers' ranks
+    other than 0 in a process group, where rank 0 writes the run's
+    summaries."""
+
+    def add_scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def add_image_png(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass

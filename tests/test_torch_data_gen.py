@@ -81,7 +81,7 @@ def test_read_xyz_matches_jax(tmp_path, case):
     frames = hand_written_cases(np.random.default_rng(0))[case]
     path = str(tmp_path / "S001C001P001R001A001.skeleton")
     write_skeleton(path, frames)
-    got = skeleton.read_xyz(path)
+    got = skeleton.read_xyz(path, use_native=False)
     want = jax_skeleton.read_xyz(path, use_native=False)
     assert got.shape == (3, len(frames), 25, 2) and got.dtype == np.float64
     np.testing.assert_array_equal(got, want)

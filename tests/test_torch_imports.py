@@ -32,6 +32,8 @@ def test_port_imports_with_jax_blocked():
         "import skeleton_action_recognition_tpu_torch.data.streams\n"
         "import skeleton_action_recognition_tpu_torch.data.tfrecord\n"
         "import skeleton_action_recognition_tpu_torch.parallel.sharding\n"
+        "import skeleton_action_recognition_tpu_torch.parallel.distributed\n"
+        "import skeleton_action_recognition_tpu_torch.native\n"
         "import skeleton_action_recognition_tpu_torch.train.checkpoint\n"
         "import skeleton_action_recognition_tpu_torch.train.losses\n"
         "import skeleton_action_recognition_tpu_torch.train.metrics\n"

@@ -1,9 +1,19 @@
 """Helpers shared by the PyTorch port's parity tests (``test_torch_*.py``)."""
 
+import os
+import pathlib
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+from skeleton_action_recognition_tpu.train.train_state import (
+    create_train_state,
+)
+from skeleton_action_recognition_tpu_torch import interop
 
 # The suite runs in several worker processes at once, and every worker
 # imports this module while it collects. torch's default of one intra-op
@@ -133,3 +143,76 @@ def assert_parity(result, out_tol, grad_tol, stats_tol=1e-5):
         close(pair, grad_tol, f"{name} gradient", floor)
     for name, pair in result.get("batch_stats", {}).items():
         close(pair, stats_tol, name)
+
+
+WORKER = pathlib.Path(__file__).with_name("test_torch_parallel_worker.py")
+
+
+class Ranks:
+    """``job`` running on ``world`` gloo ranks in the background (the test
+    computes its reference meanwhile); :meth:`wait` returns each rank's
+    results."""
+
+    def __init__(self, tmp_path, job, world=2):
+        job_file = tmp_path / "job.pt"
+        torch.save(job, job_file)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                            "MASTER_PORT")}
+        env["OMP_NUM_THREADS"] = "2"
+        self.outs = [tmp_path / f"rank{r}.pt" for r in range(world)]
+        self.procs = [
+            subprocess.Popen(
+                [sys.executable, str(WORKER), str(r), str(world),
+                 str(tmp_path / "rendezvous"), str(job_file), str(out)],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            )
+            for r, out in enumerate(self.outs)
+        ]
+
+    def wait(self, timeout=240):
+        try:
+            logs = [p.communicate(timeout=timeout)[0].decode()
+                    for p in self.procs]
+        finally:
+            for p in self.procs:
+                p.kill()
+        for p, log in zip(self.procs, logs):
+            assert p.returncode == 0, log[-3000:]
+        return [torch.load(out, weights_only=False) for out in self.outs]
+
+
+def jax_init(model, x, tx):
+    """``create_train_state``'s state from key 0, and its variables as the
+    port's state dict."""
+    state = create_train_state(model, jax.random.key(0), jnp.asarray(x[:1]),
+                               tx)
+    return state, interop.flax_to_state_dict(jax.device_get(
+        {"params": state.params, "batch_stats": state.batch_stats}))
+
+
+def jax_one_device(state, x, y, step_fn, *flags):
+    """JAX's loss and state dict after one step on the whole batch."""
+    state, m = jax.jit(step_fn, static_argnums=tuple(
+        range(3, 3 + len(flags))))(state, jnp.asarray(x), jnp.asarray(y),
+                                   *flags)
+    after = interop.flax_to_state_dict(jax.device_get(
+        {"params": state.params, "batch_stats": state.batch_stats}))
+    return float(m["loss"]), after
+
+
+def assert_ranks_equal(results):
+    """Every rank ends with the same parameters and statistics, bit for
+    bit, and reports the same (global) metrics."""
+    first = results[0]
+    for other in results[1:]:
+        assert other["metrics"] == first["metrics"]
+        for name, t in first["state"].items():
+            assert torch.equal(other["state"][name], t), name
+
+
+def assert_state_close(got, want, atol, rtol=0.0):
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=rtol,
+                                   atol=atol, err_msg=name)
