@@ -213,6 +213,39 @@ so the exit code is not 0.
     the card against the CPU (``zoo_sampler``). No kernel of the port may
     launch in the phase (``zoo``): none of these models reaches one, as
     none of their JAX counterparts reaches ``pl.pallas_call``.
+15. ``remat``: the full-width ST-GCN at B=128, T=300 (seeded weights) in
+    bf16 with the CLI's default fusion (``fused_min128``: #1, #3), in bf16
+    with both fused training options on it (#2-#5) and in f32 with TF32 off
+    (``fused_min128``), each with remat off, ``remat_policy="full"`` and
+    ``"dots"``: the first step's loss, gradient norm and running statistics
+    against remat off (``REMAT_TOL``), the matrix products the backward
+    recomputes (counted by a dispatch mode: none under "dots", every one of
+    the blocks' forward under "full"), #1-#5's launches a step (a block's
+    forward kernels twice under remat, asserted), the median of 10 steps
+    after 3 warm-up in turns and each policy's peak memory (off > "dots"
+    >= "full", asserted).
+16. ``seqpar``: ``ops.virtual_radar.radar_return_sharded`` (N=16, T_in=300
+    x 250 = 75,000 samples, 24 edges x 2 bodies, both lambdas) and
+    ``radar_spectrogram_sharded`` (x 256 = 76,800: at 75,000 no count of
+    ranks above 1 gives hop-aligned blocks) in one process without a group
+    and on 2 and 4 gloo ranks on this card (child processes, ``file://``
+    rendezvous), forward and backward to x, loc and lambda, against one
+    process through ``radar_return_fused`` (and ``stft_logmag``): the
+    return at ``RADAR_TOL``, its gradients in norm at the same, the
+    spectrogram at the JAX test's above-median criterion and its gradients
+    through those bins at 5e-2 in norm, the ranks alike bit for bit, #8 and
+    #9 once a rank a pass and #10 and #11 once a rank a spectrogram pass
+    (the last rank's launch holds the final frame), each rank's time
+    (gloo through host memory on one card, not NCCL).
+17. ``demo``: ``examples/virtual_radar_demo_torch.py``'s ``main`` on
+    synthetic inputs of the reference's shapes drawn on the card (CMU (200,
+    42, 3) mm, gait (200, 17, 3), NTU (1, 3, 300, 25, 2): 4,000, 2,000 and
+    165,000 samples, 41, 16 and 24 edge-body pairs): #8 and #10 once a
+    spectrogram, no backward; each spectrogram's return against #8's plain
+    version, #10 against the float64 STFT of that return, the route against
+    the plain route and float64 as magnitudes (``DEMO_*``); the cubic
+    operators' band widths; the scipy cross-check; a synthetic Azure Kinect
+    JSON through ``data.demo.load_azure_kinect``.
 
 Then ``seconds`` (each phase's wall time) and the kernels line
 (``sgcn_fwd`` ``ms``/``plain_ms``: f32 time of the
@@ -236,9 +269,12 @@ rate; ``launches``: the
 counts of the ``cli`` run for ``sgcn_fwd``/``sgcn_bwd``, of the
 ``spec_cli`` run for the spline radar and STFT kernels, of
 ``radar_dense_path`` for the dense radar kernels and of the ``train``
-phase's timed steps for the others, each main path counted from 0), the
-card's name and power limit as ``nvidia-smi`` prints them, and the result
-line.
+phase's timed steps for the others, each main path counted from 0; since
+the ``remat``, ``seqpar`` and ``demo`` phases ``launches`` is the sum over
+the paths of ``launches_by_path``, which adds the first steps of ``remat``
+for #1-#5, the compared passes of ``seqpar`` in every process for #8-#11
+and ``demo``'s ``main`` for #8 and #10), the card's name and power limit as
+``nvidia-smi`` prints them, and the result line.
 """
 
 from __future__ import annotations
@@ -265,6 +301,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from scripts import corpus_lib
 from skeleton_action_recognition_tpu_torch.cli import (
@@ -275,6 +312,7 @@ from skeleton_action_recognition_tpu_torch.cli import (
     main_spectrogram,
 )
 from skeleton_action_recognition_tpu_torch.data import skeleton, tfrecord
+from skeleton_action_recognition_tpu_torch.data import demo as data_demo
 from skeleton_action_recognition_tpu_torch.data.pipeline import (
     NumpyDataset,
     TFRecordDataset,
@@ -290,6 +328,7 @@ from skeleton_action_recognition_tpu_torch.models import (
     model_class,
     spectrogram,
 )
+from skeleton_action_recognition_tpu_torch.models import stgcn
 from skeleton_action_recognition_tpu_torch.models.stgcn import Model
 from skeleton_action_recognition_tpu_torch.ops import (
     build,
@@ -306,6 +345,7 @@ from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     DataParallel,
 )
 from skeleton_action_recognition_tpu_torch.serving import Predictor
+from skeleton_action_recognition_tpu_torch.train import losses
 from skeleton_action_recognition_tpu_torch.train.optim import (
     TFSGD,
     RadarOptimizer,
@@ -3420,6 +3460,622 @@ def phase_ddp(device, request):
     emit("ddp_seconds", **laps)
 
 
+# ---------------------------------------------------------------------------
+# remat: the ST-GCN's remat policies (models/stgcn.py::remat_block) at the
+# training shape
+
+# (dtype, options, launches of one step with remat off): the CLI's default
+# fusion (#1, #3 on the six wide blocks), and both fused training options on
+# it (#2, #3 on the wide blocks, #4, #5 on the four narrow stride-1 ones)
+REMAT_CONFIGS = {
+    "bf16_fused_min128": (
+        "bf16", dict(fused_sgcn=True, fused_sgcn_min_channels=128),
+        {"sgcn_fwd": 6, "sgcn_bwd": 6}),
+    "bf16_stats_tconv": (
+        "bf16", dict(fused_sgcn=True, fused_sgcn_min_channels=128,
+                     sgcn_stats=True, fused_tconv=True),
+        {"sgcn_fwd_stats": 6, "sgcn_bwd": 6, "tconv_fwd": 4,
+         "tconv_bwd": 4}),
+    "f32_fused_min128": (
+        "f32", dict(fused_sgcn=True, fused_sgcn_min_channels=128),
+        {"sgcn_fwd": 6, "sgcn_bwd": 6}),
+}
+REMAT_POLICIES = ("off", "full", "dots")
+# the kernels a block's forward launches, which remat runs again in the
+# backward under either policy
+FORWARD_KERNELS = ("sgcn_fwd", "sgcn_fwd_stats", "tconv_fwd")
+# the first step's loss, gradient norm and running statistics under a
+# policy against remat off, relative: the same computation, the recompute
+# bit for bit where cuDNN's and the kernels' sums are (f32: the JAX
+# package's remat test's 1e-5)
+REMAT_TOL = {"f32": 1e-5, "bf16": 1e-3}
+
+
+class ProductCounter(TorchDispatchMode):
+    """Counts the matrix products (``stgcn.SAVED_PRODUCTS``: what F.linear
+    and einsum lower to) that reach the dispatcher while it is on. Entered
+    around a backward it sits below a selective-checkpoint context, which
+    answers the products it keeps without running them: what it counts
+    ran."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.count += func in stgcn.SAVED_PRODUCTS
+        return func(*args, **(kwargs or {}))
+
+
+def remat_first_step(model, x, y):
+    """One training-mode forward and backward of the cross-entropy: the
+    loss, the gradients' norm, the gradients and running statistics, the
+    products of the forward and of the backward, and the launches of
+    #1-#5."""
+    model.train()
+    forward, backward = ProductCounter(), ProductCounter()
+    reset_launches()
+    with forward:
+        loss = losses.total_loss(model(x), y, model, len(x))
+    with backward:
+        loss.backward()
+    torch.cuda.synchronize()
+    launches = read_launches(TRAIN_KERNELS)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return {
+        "loss": loss.item(),
+        "grad_norm": torch.sqrt(sum((g.double() ** 2).sum()
+                                    for g in grads.values())).item(),
+        "grads": grads,
+        "stats": {n: b.clone() for n, b in model.named_buffers()
+                  if "running" in n},
+        "products": (forward.count, backward.count), "launches": launches,
+    }
+
+
+def phase_remat(device):
+    """The full-width NTU-60 ST-GCN (B=128, T=300, seeded weights) in each
+    of ``REMAT_CONFIGS`` with remat off, "full" and "dots": the first
+    step's loss, gradients and running statistics against remat off, the
+    products the backward recomputes (none under "dots", every product of
+    the blocks' forward under "full"), #1-#5's launches a step (a block's
+    forward kernels twice under remat), then the median of 10 steps after 3
+    warm-up in turns and each policy's peak memory (off > "dots" >=
+    "full"). Returns the launches of the first steps by kernel."""
+    rng = np.random.default_rng(SEED + 21)
+    x = torch.from_numpy(rng.normal(size=(TRAIN_BATCH, 3, T, 25, 2)).astype(
+        np.float32)).to(device)
+    y = torch.nn.functional.one_hot(torch.from_numpy(
+        rng.integers(0, 60, TRAIN_BATCH)), 60).float().to(device)
+    total = dict.fromkeys(TRAIN_KERNELS, 0)
+    for config, (name, options, base) in REMAT_CONFIGS.items():
+        tol = REMAT_TOL[name]
+        firsts, steps = {}, {}
+        for policy in REMAT_POLICIES:
+            model = Model(
+                num_classes=60, dtype=DTYPES[name] if name == "bf16" else None,
+                remat=policy != "off",
+                remat_policy="full" if policy == "off" else policy,
+                device=device, generator=torch.Generator().manual_seed(SEED),
+                **options)
+            firsts[policy] = remat_first_step(model, x, y)
+            fn = make_train_step(model, TFSGD(model.parameters(), 0.01),
+                                 TRAIN_BATCH)
+            steps[policy] = (lambda fn=fn: fn(x, y, False)["loss"].item())
+            for k, v in firsts[policy]["launches"].items():
+                total[k] += v
+        off = firsts["off"]
+        fwd_products, bwd_products = off["products"]
+        record = {}
+        for policy in REMAT_POLICIES:
+            got = firsts[policy]
+            want_launches = {k: base.get(k, 0) * (
+                2 if policy != "off" and k in FORWARD_KERNELS else 1)
+                for k in TRAIN_KERNELS}
+            check(got["launches"] == want_launches,
+                  f"remat {config} {policy}: launched {got['launches']}, "
+                  f"predicted {want_launches}")
+            recomputed = got["products"][1] - bwd_products
+            record[policy] = {
+                "loss": got["loss"], "grad_norm": got["grad_norm"],
+                "launches": got["launches"],
+                "forward_products": got["products"][0],
+                "recomputed_products": recomputed,
+            }
+            if policy == "off":
+                continue
+            loss_err = abs(got["loss"] - off["loss"]) / abs(off["loss"])
+            norm_err = abs(got["grad_norm"] - off["grad_norm"]) / off[
+                "grad_norm"]
+            stats_err = max(rel_err(got["stats"][k], v)
+                            for k, v in off["stats"].items())
+            # each tensor's largest difference over the largest gradient
+            # (a bias before a training-mode BatchNorm has a gradient at
+            # rounding level, which repeats need not reproduce)
+            grad_err = max((got["grads"][k] - v).abs().max().item()
+                           for k, v in off["grads"].items()) / max(
+                v.abs().max().item() for v in off["grads"].values())
+            record[policy].update(
+                loss_rel_err=loss_err, grad_norm_rel_err=norm_err,
+                running_stats_rel_err=stats_err,
+                stats_bit_equal=all(torch.equal(got["stats"][k], v)
+                                    for k, v in off["stats"].items()),
+                grad_max_rel_err=grad_err)
+            check(loss_err <= tol and norm_err <= tol and stats_err <= tol,
+                  f"remat {config} {policy} against off: loss {loss_err}, "
+                  f"gradient norm {norm_err}, statistics {stats_err}")
+            check(got["products"][0] == fwd_products,
+                  f"remat {config} {policy}: {got['products'][0]} forward "
+                  f"products, off {fwd_products}")
+        # every block's products, which is all of the forward's but the
+        # logits head's
+        check(record["dots"]["recomputed_products"] == 0
+              and record["full"]["recomputed_products"] == fwd_products - 1
+              and fwd_products > 1,
+              f"remat {config}: recomputed products "
+              f"{ {p: r['recomputed_products'] for p, r in record.items()} }"
+              f" of {fwd_products} in the forward")
+        del firsts
+        times = {p: [] for p in steps}
+        losses_ = {p: [run() for _ in range(TRAIN_WARMUP)]
+                   for p, run in steps.items()}
+        for i in range(TRAIN_STEPS):  # in turns, reversed every other
+            for p in REMAT_POLICIES[:: 1 if i % 2 == 0 else -1]:
+                start = time.perf_counter()
+                losses_[p].append(steps[p]())
+                times[p].append(time.perf_counter() - start)
+        peaks = {}
+        for p, run in steps.items():
+            torch.cuda.reset_peak_memory_stats()
+            run()
+            peaks[p] = torch.cuda.max_memory_allocated() / 1e9
+            record[p].update(
+                median_step_ms=1e3 * statistics.median(times[p]),
+                min_step_ms=1e3 * min(times[p]),
+                max_step_ms=1e3 * max(times[p]),
+                clips_per_s=TRAIN_BATCH / statistics.median(times[p]),
+                peak_gb=peaks[p], loss_last=losses_[p][-1])
+            check(all(np.isfinite(losses_[p])),
+                  f"remat {config} {p}: non-finite loss")
+        emit("remat", config=config, dtype=name, batch=TRAIN_BATCH, t=T,
+             steps=TRAIN_STEPS, tf32=False, policies=record)
+        check(peaks["off"] > peaks["dots"] >= peaks["full"],
+              f"remat {config}: peak memory {peaks}, predicted off > dots "
+              f">= full")
+        del steps
+        torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# seqpar: the sequence-parallel radar ops (ops/virtual_radar.py) on gloo
+# ranks on this one card
+
+SEQPAR_WORLDS = (2, 4)
+# radar_spectrogram_sharded's upsampling: 300 x 256 = 76,800 samples. At
+# the trainer's 75,000 = 2^3 3 5^5 no count of ranks above 1 gives
+# hop-aligned blocks (in JAX too)
+SEQPAR_SPEC_UP = 256
+SEQPAR_REPS = 3  # timed forward + backward passes a rank (median)
+# the sharded spectrogram against one process: the JAX test's criterion on
+# the above-median bins (tests/test_parallel.py:166-172); gradients through
+# those bins alone, in norm (the f32 routes' gradients lie up to 3.1e-2
+# from float64 there at lambda = 5e-4: tests/test_torch_seqpar_radar.py)
+SEQPAR_SPEC_MAX, SEQPAR_SPEC_MEAN, SEQPAR_SPEC_GRAD_TOL = 0.15, 0.01, 5e-2
+SEQPAR_KERNELS = DENSE_KERNELS + ("stft_fwd", "stft_bwd")
+
+
+def rel_norm(p, q):
+    return ((p.double() - q.double()).norm() / q.double().norm()).item()
+
+
+def seqpar_pass(op, x, loc, lam, cotangents):
+    """``op(x, loc, lam)`` and the gradients of ``sum(out * cotangent)``
+    in the three; the outputs, gradients (each on the host) and the
+    launches of the kernels."""
+    xg, locg = x.clone().requires_grad_(), loc.clone().requires_grad_()
+    lamg = torch.tensor(lam, device=x.device, requires_grad=True)
+    reset_launches()
+    out = op(xg, locg, lamg)
+    sum((o * g).sum() for o, g in zip(out, cotangents)).backward()
+    torch.cuda.synchronize()
+    return {"out": [o.detach().cpu() for o in out],
+            "grads": [t.grad.cpu() for t in (xg, locg, lamg)],
+            "launches": read_launches(SEQPAR_KERNELS)}
+
+
+def seqpar_inputs(device):
+    """The phase's clips (the trainer's 16, T=300, 24 edges x 2 bodies),
+    location, the two operators (x250, x256) and seeded cotangents of the
+    return."""
+    x = torch.from_numpy(spec_clips(SPEC_BATCH, SEED + 31)[0]).to(device)
+    ops_ = {up: torch.from_numpy(resample.pad_frames_operator(
+        SPEC_T, up)).to(device) for up in (SPEC_UP, SEQPAR_SPEC_UP)}
+    g = torch.Generator(device=device).manual_seed(SEED + 32)
+    t_out = SPEC_T * SPEC_UP
+    cot = [torch.randn(SPEC_BATCH, t_out, generator=g, device=device)
+           for _ in range(2)]
+    loc = torch.tensor([0.1, -0.2, 0.3], device=device)
+    return x, loc, ops_, cot
+
+
+def stft_bases(device, dtype=torch.float32):
+    return [torch.from_numpy(b).to(device, dtype)
+            for b in stft.stft_basis(256, dtype=np.float64)]
+
+
+def seqpar_runs(device, mask, group=None):
+    """The sharded ops on this process's group (none: one process):
+    ``radar_return_sharded`` forward and backward at both LAMBDAS, and
+    ``radar_spectrogram_sharded`` at lambda 5e-4 with the cotangent
+    ``mask`` (seeded normal on the reference's above-median bins), each
+    pass's launches; then the median time of ``SEQPAR_REPS`` forward and
+    backward passes of each op at lambda 5e-4."""
+    x, loc, ops_, cot = seqpar_inputs(device)
+    passes = {
+        "return": (lambda a, b, c: virtual_radar.radar_return_sharded(
+            a, ops_[SPEC_UP], b, c, group), cot),
+        "spectrogram": (lambda a, b, c: (
+            virtual_radar.radar_spectrogram_sharded(
+                a, ops_[SEQPAR_SPEC_UP], b, c, group),), [mask.to(device)]),
+    }
+    out = {f"return_{lam}": seqpar_pass(passes["return"][0], x, loc, lam,
+                                        cot) for lam in LAMBDAS}
+    op, cots = passes["spectrogram"]
+    out["spectrogram"] = seqpar_pass(op, x, loc, LAMBDAS[0], cots)
+    for name, (op, cots) in passes.items():
+        times = []
+        for _ in range(SEQPAR_REPS):
+            distributed.barrier()
+            start = time.perf_counter()
+            seqpar_pass(op, x, loc, LAMBDAS[0], cots)
+            times.append(time.perf_counter() - start)
+        out[f"{name}_ms"] = 1e3 * statistics.median(times)
+    return out
+
+
+def seqpar_rank(rank, world, init_file, mask_file, out, device="cuda:0"):
+    """One gloo rank of the ``seqpar`` phase on ``device`` (every rank on
+    card 0): joins the group and saves :func:`seqpar_runs`'s results to
+    ``out``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    check(distributed.maybe_initialize_distributed(
+        "gloo", init_method=f"file://{init_file}"), "no process group")
+    tf32_off()
+    check((distributed.rank(), distributed.world_size()) == (
+        int(rank), int(world)), f"rank {distributed.rank()}")
+    torch.save(seqpar_runs(torch.device(device),
+                           torch.load(mask_file, weights_only=True)), out)
+    dist.destroy_process_group()
+
+
+def seqpar_reference(device):
+    """One process without the sharded ops: ``radar_return_fused`` forward
+    and backward at both LAMBDAS, and its return at x256 through
+    ``stft_logmag`` (centered), whose above-median bins make the
+    spectrogram's cotangent."""
+    x, loc, ops_, cot = seqpar_inputs(device)
+    ref = {f"return_{lam}": seqpar_pass(
+        lambda a, b, c: radar.radar_return_fused(a, ops_[SPEC_UP], b, c),
+        x, loc, lam, cot) for lam in LAMBDAS}
+    cos, sin = stft_bases(device)
+
+    def spectrogram(a, b, c):
+        re, im = radar.radar_return_fused(a, ops_[SEQPAR_SPEC_UP], b, c)
+        return (stft_logmag.stft_logmag(re, im, 16, cos, sin),)
+
+    with torch.no_grad():
+        spec = spectrogram(x, loc, torch.tensor(LAMBDAS[0], device=device))[0]
+    g = torch.Generator(device=device).manual_seed(SEED + 33)
+    mask = torch.randn(spec.shape, generator=g, device=device) * (
+        spec > spec.median()).float()
+    ref["spectrogram"] = seqpar_pass(spectrogram, x, loc, LAMBDAS[0], [mask])
+    return ref, mask.cpu()
+
+
+def seqpar_errors(got, ref):
+    """The sharded results ``got`` against one process's ``ref``; raises
+    past the tolerances."""
+    errors = {}
+    for lam in LAMBDAS:
+        key = f"return_{lam}"
+        fwd_tol, bwd_tol = RADAR_TOL[lam]
+        fwd = max(rel_err(p, q) for p, q in zip(got[key]["out"],
+                                                 ref[key]["out"]))
+        bwd = dict(zip(("x", "loc", "lambda"), (
+            rel_norm(p, q) for p, q in zip(got[key]["grads"],
+                                           ref[key]["grads"]))))
+        errors[key] = {"out_rel_err": fwd, "grad_rel_norm_err": bwd,
+                       "tol": RADAR_TOL[lam]}
+        check(fwd <= fwd_tol and max(bwd.values()) <= bwd_tol,
+              f"seqpar {key}: return {fwd}, gradients {bwd}")
+    s, r = got["spectrogram"]["out"][0], ref["spectrogram"]["out"][0]
+    diff = (s - r).abs()[r > r.median()]
+    grads = dict(zip(("x", "loc", "lambda"), (
+        rel_norm(p, q) for p, q in zip(got["spectrogram"]["grads"],
+                                       ref["spectrogram"]["grads"]))))
+    errors["spectrogram"] = {
+        "above_median_max": diff.max().item(),
+        "above_median_mean": diff.mean().item(),
+        "grad_rel_norm_err": grads}
+    check(s.shape == r.shape and diff.max() < SEQPAR_SPEC_MAX
+          and diff.mean() < SEQPAR_SPEC_MEAN
+          and max(grads.values()) <= SEQPAR_SPEC_GRAD_TOL,
+          f"seqpar spectrogram: {errors['spectrogram']}")
+    return errors
+
+
+def phase_seqpar(device):
+    """``radar_return_sharded`` and ``radar_spectrogram_sharded`` at the
+    trainer's shape in one process without a group, and on 2 and 4 gloo
+    ranks on this card (child processes, ``file://`` rendezvous), against
+    one process through ``radar_return_fused`` (and ``stft_logmag``): the
+    results and gradients, the ranks alike bit for bit, #8/#9 once a rank
+    a pass and #10/#11 once a rank a spectrogram pass, each rank's time
+    (gloo through host memory on one card, not NCCL). Returns the launches
+    of the compared passes, summed over every process, by kernel."""
+    ref, mask = seqpar_reference(device)
+    total = dict.fromkeys(SEQPAR_KERNELS, 0)
+    want = {"return": {"radar_dense_fwd": 1, "radar_dense_bwd": 1,
+                       "stft_fwd": 0, "stft_bwd": 0},
+            "spectrogram": dict.fromkeys(SEQPAR_KERNELS, 1)}
+
+    def tally(result, label):
+        for key, run in result.items():
+            if key.endswith("_ms"):
+                continue
+            predicted = want["spectrogram" if key == "spectrogram"
+                             else "return"]
+            check(run["launches"] == predicted,
+                  f"seqpar {label} {key}: launched {run['launches']}, "
+                  f"predicted {predicted}")
+            for k, v in run["launches"].items():
+                total[k] += v
+
+    alone = seqpar_runs(device, mask)
+    tally(alone, "one process")
+    # without a group the op is radar_return_fused: the same bits where
+    # the two calls' sums are (seqpar_errors holds it at RADAR_TOL)
+    bit_equal = {lam: all(torch.equal(p, q) for p, q in zip(
+        alone[f"return_{lam}"]["out"], ref[f"return_{lam}"]["out"]))
+        for lam in LAMBDAS}
+    emit("seqpar", world=1, group=None, n=SPEC_BATCH, t_in=SPEC_T,
+         return_bit_equal_to_fused=bit_equal,
+         t_out={"return": SPEC_T * SPEC_UP,
+                "spectrogram": SPEC_T * SEQPAR_SPEC_UP},
+         errors=seqpar_errors(alone, ref),
+         launches={k: v["launches"] for k, v in alone.items()
+                   if not k.endswith("_ms")},
+         ms={"return": alone["return_ms"],
+             "spectrogram": alone["spectrogram_ms"]},
+         reference_ms_note="one process, no group")
+    del alone
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mask_file = os.path.join(tmp, "mask.pt")
+        torch.save(mask, mask_file)
+        for world in SEQPAR_WORLDS:
+            init_file = os.path.join(tmp, f"rendezvous{world}")
+            outs = [os.path.join(tmp, f"seqpar{world}_{r}.pt")
+                    for r in range(world)]
+            wait_all([child(f"import chip_smoke; chip_smoke.seqpar_rank("
+                            f"{r}, {world}, {init_file!r}, {mask_file!r}, "
+                            f"{outs[r]!r}, {str(device)!r})")
+                      for r in range(world)])
+            ranks = [torch.load(o, weights_only=False) for o in outs]
+            for r, result in enumerate(ranks):
+                tally(result, f"rank {r} of {world}")
+                for key in (k for k in result if not k.endswith("_ms")):
+                    check(all(torch.equal(p, q) for p, q in zip(
+                        result[key]["out"] + result[key]["grads"],
+                        ranks[0][key]["out"] + ranks[0][key]["grads"])),
+                        f"seqpar: rank {r} of {world} differs from rank 0 "
+                        f"on {key}")
+            emit("seqpar", world=world, group="gloo", n=SPEC_BATCH,
+                 t_in=SPEC_T, rows_per_rank={
+                     "return": -(-SPEC_T * SPEC_UP // world),
+                     "spectrogram": SPEC_T * SEQPAR_SPEC_UP // world},
+                 errors=seqpar_errors(ranks[0], ref),
+                 launches_rank0={k: v["launches"] for k, v in
+                                 ranks[0].items() if not k.endswith("_ms")},
+                 rank_ms={k: [r[f"{k}_ms"] for r in ranks]
+                          for k in ("return", "spectrogram")},
+                 rank_ms_note="gloo through host memory on one card, not "
+                              "NCCL: a forward and backward each, median "
+                              f"of {SEQPAR_REPS}")
+            del ranks
+    return total
+
+
+# ---------------------------------------------------------------------------
+# demo: examples/virtual_radar_demo_torch.py on synthetic inputs of the
+# reference's shapes
+
+DEMO_FRAMES = {"cmu_mocap": (200, 42), "simulated_gait": (200, 17),
+               "ntu_example": (300, 25)}
+# each spectrogram's stages: #8's return against its plain version on the
+# same inputs (DEMO_RETURN_TOL), #10 against the float64 STFT of #8's own return (log|S| to
+# STFT_ATOL on the above-median bins within DEMO_LOG_FLOOR of the largest,
+# and |S| + eps to STFT_MAG_TOL of the largest); the whole route against
+# the plain one and against float64, as magnitudes relative to the largest
+# (two f32 routes round the positions apart, which the phase turns into up
+# to 1.2e-2 of the return: tests/test_torch_demo.py). The floor: a smooth
+# clip upsampled 550x has its median bin ~16 nats below its peak, where an
+# f32 FFT's rounding (~1e-7 of a frame's energy) is the bin itself
+# (torch.stft in f32 lies 0.24 from float64 there, and 3.4e-5 on the bins
+# within 1e-3 of the largest: the demo's NTU input on the CPU)
+DEMO_ROUTE_TOL = 2e-2
+DEMO_LOG_FLOOR = float(np.log(1e3))
+# #8 against its plain version: the demo's joints lie ~3 m from the radar
+# (the trainer's clips ~0.5 m), where a position's f32 rounding (~2e-7 m)
+# moves the phase by ~5e-3 rad at lambda 5e-4 (measured 4.8e-3 of the
+# return's scale on the gait): ROUTE_TOL's 1e-2
+DEMO_RETURN_TOL = ROUTE_TOL[5e-4]
+
+
+def demo_module():
+    """``examples/virtual_radar_demo_torch.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "virtual_radar_demo_torch.py")
+    spec = importlib.util.spec_from_file_location("radar_demo", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def demo_trajectories(t, v, g, device):
+    """``(t, v, 3)`` smooth joint trajectories drawn on the card from ``g``:
+    each joint about a rest position 3 m in front of the origin, moving
+    along sinusoids of 0.1 m; float64 on the host."""
+    rest = 0.4 * torch.randn(1, v, 3, generator=g, device=device,
+                             dtype=torch.float64)
+    rest[..., 2] += 3.0
+    freq = 0.05 + 0.25 * torch.rand(1, v, 3, generator=g, device=device,
+                                    dtype=torch.float64)
+    phase = 2 * np.pi * torch.rand(1, v, 3, generator=g, device=device,
+                                   dtype=torch.float64)
+    steps = torch.arange(t, device=device, dtype=torch.float64)[:, None,
+                                                                 None]
+    return (rest + 0.1 * torch.sin(freq * steps + phase)).cpu().numpy()
+
+
+def demo_plain(demo, data, edges, lam, pad, device, dtype):
+    """The demo's route through the kernels' plain versions, in ``dtype``:
+    the joint smoothing, ``dense_radar_reference`` against the cubic
+    operator (with the gather and bone lengths of ``radar_return_fused``),
+    ``stft_logmag_reference``; ``(spectrogram, (re, im))``."""
+    x = torch.as_tensor(data, dtype=dtype, device=device)
+    t, v, _ = x.shape
+    g = torch.from_numpy(resample.gaussian_smooth_matrix(
+        v, demo.SIGMA)).to(device, dtype)
+    x5 = torch.einsum("vu,tuc->tvc", g, x).permute(2, 0, 1)[None, ..., None]
+    w = torch.from_numpy(resample.cubic_interp_matrix(t, t * pad)).to(
+        device, dtype)
+    src, dst = radar.gather_features(x5, edges)
+    c = radar.bone_length_mean_sq(x5, w, edges)
+    re, im = radar.dense_radar_reference(
+        w, src, dst, c, torch.zeros(3, dtype=dtype, device=device),
+        torch.tensor(lam, dtype=dtype, device=device), w.shape[0])
+    cos, sin = stft_bases(device, dtype)
+    return stft_logmag.stft_logmag_reference(re, im, 16, cos, sin)[0], (
+        re, im)
+
+
+def magnitude_err(got, want):
+    """Spectrograms as magnitudes |S| (log(|S| + eps) undone), max |diff|
+    / max |want|."""
+    got, want = got.double().exp() - 1e-6, want.double().exp() - 1e-6
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_demo(device):
+    """``examples/virtual_radar_demo_torch.py``'s ``main`` on synthetic
+    inputs of the reference's shapes drawn on the card (CMU (200, 42, 3) in
+    mm, gait (200, 17, 3), NTU (1, 3, 300, 25, 2): T_out 4,000, 2,000 and
+    165,000): one launch of #8 and of #10 a spectrogram and no backward;
+    each spectrogram's stages and route against the plain route and
+    float64, the cubic operator's band widths, the scipy cross-check; and
+    a synthetic Azure Kinect JSON through ``data.demo.load_azure_kinect``.
+    Returns the launches of ``main``."""
+    demo = demo_module()
+    g = torch.Generator(device=device).manual_seed(SEED + 41)
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = {k: demo_trajectories(t, v, g, device)
+                  for k, (t, v) in DEMO_FRAMES.items()}
+        np.save(os.path.join(tmp, "cmu_mocap.npy"),
+                frames["cmu_mocap"] * 1000.0)
+        np.save(os.path.join(tmp, "simulated_gait.npy"),
+                frames["simulated_gait"])
+        t_ntu = DEMO_FRAMES["ntu_example"][0]
+        ntu = np.zeros((1, 3, t_ntu, 25, 2))
+        ntu[0, ..., 0] = frames["ntu_example"].transpose(2, 0, 1)
+        ntu[0, ..., 1] = demo_trajectories(t_ntu, 25, g, device).transpose(
+            2, 0, 1)
+        np.save(os.path.join(tmp, "NTU_preprocessed_skeleton_examples.npy"),
+                ntu)
+        reset_launches()
+        results, seconds = timed(lambda: demo.main([
+            "--data-root", tmp, "--out-dir", os.path.join(tmp, "out")]
+            + (["--cpu"] if device.type == "cpu" else [])))
+        launches = read_launches(SEQPAR_KERNELS)
+        check(launches == {"radar_dense_fwd": 3, "radar_dense_bwd": 0,
+                           "stft_fwd": 3, "stft_bwd": 0},
+              f"the demo launched {launches}; predicted #8 and #10 once a "
+              f"spectrogram")
+        inputs = demo.load_inputs(tmp)
+        records = {}
+        for name, (_, edges, lam, pad) in demo.DEMOS.items():
+            spec, (re, im) = demo.spectrogram(inputs[name], edges, lam, pad,
+                                              device)
+            plain, (p_re, p_im) = demo_plain(demo, inputs[name], edges, lam,
+                                             pad, device, torch.float32)
+            exact, _ = demo_plain(demo, inputs[name], edges, lam, pad,
+                                  device, torch.float64)
+            cos, sin = stft_bases(device, torch.float64)
+            oracle = stft_logmag.stft_logmag_reference(
+                re.double(), im.double(), 16, cos, sin)[0]
+            above = (oracle > oracle.median()) & (
+                oracle > oracle.max() - DEMO_LOG_FLOOR)
+            stft_err = (spec.double() - oracle).abs()[above].max().item()
+            stft_mag = magnitude_err(spec, oracle)
+            return_err = max(rel_err(re, p_re), rel_err(im, p_im))
+            t_out = re.shape[1]
+            w = torch.from_numpy(resample.cubic_interp_matrix(
+                len(inputs[name]), t_out).astype(np.float32)).to(device)
+            _, band_record = band_stats(w, t_out)
+            records[name] = {
+                "shape": list(spec.shape), "t_out": t_out,
+                "edge_body_pairs": len(edges), "lam": lam,
+                "min": results[name].min().item(),
+                "max": results[name].max().item(),
+                "main_equals_route": bool(np.array_equal(
+                    results[name], spec.cpu().numpy())),
+                "return_vs_plain_rel_err": return_err,
+                "stft_vs_f64_above_median_max_abs": stft_err,
+                "stft_bins_held": above.double().mean().item(),
+                "stft_vs_f64_magnitude_rel_err": stft_mag,
+                "route_vs_plain_magnitude_rel_err": magnitude_err(spec,
+                                                                  plain),
+                "route_vs_f64_magnitude_rel_err": magnitude_err(spec, exact),
+                "plain_vs_f64_magnitude_rel_err": magnitude_err(plain, exact),
+                **band_record,
+            }
+            check(return_err <= DEMO_RETURN_TOL
+                  and stft_err <= STFT_ATOL and stft_mag <= STFT_MAG_TOL
+                  and records[name]["route_vs_plain_magnitude_rel_err"]
+                  <= DEMO_ROUTE_TOL
+                  and records[name]["route_vs_f64_magnitude_rel_err"]
+                  <= DEMO_ROUTE_TOL
+                  and bool(torch.isfinite(spec).all()),
+                  f"demo {name}: {records[name]}")
+            del spec, plain, exact, oracle, w, re, im, p_re, p_im
+            torch.cuda.empty_cache()
+        # an Azure Kinect recording: 30 frames, every fifth without a body
+        rng = np.random.default_rng(SEED + 42)
+        joints = rng.normal(0.0, 500.0, (30, 32, 3))
+        doc = {"frames": [
+            {"num_bodies": 0 if i % 5 == 0 else 1, "bodies": [] if i % 5 == 0
+             else [{"joint_positions": joints[i].tolist()}]}
+            for i in range(30)]}
+        path = os.path.join(tmp, "kinect.json")
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        kinect, edges = data_demo.load_azure_kinect(path)
+        kept = [i for i in range(30) if i % 5]
+        check(kinect.shape == (24, 32, 3)
+              and np.allclose(kinect, joints[kept] * 0.001, rtol=0,
+                              atol=1e-12) and len(edges) == 26,
+              f"load_azure_kinect gave {kinect.shape}")
+    emit("demo", seconds=seconds, launches=launches,
+         scipy_cross_check=dict(zip(("mean", "p99"),
+                                    results["scipy_cross_check"])),
+         spectrograms=records, azure_kinect_frames=int(kinect.shape[0]))
+    return launches
+
+
 def main():
     phase_env()
     device = torch.device("cuda", 0)
@@ -3472,37 +4128,60 @@ def main():
     lap("eval_path")
     phase_zoo(device, requests[64])
     lap("zoo")
+    tf32_off()
+    remat_launches = phase_remat(device)
+    lap("remat")
+    seqpar_launches = phase_seqpar(device)
+    lap("seqpar")
+    demo_launches = phase_demo(device)
+    lap("demo")
     emit("seconds", **laps)
     # #7's entry counts both instances; the loc/lambda one's count beside
     loc_lam = spec_launches.pop("radar_bwd_loc_lam")
     spec_totals["radar_bwd"]["loc_lam_launches"] = loc_lam
     spec_launches["radar_bwd"] += loc_lam
-    print(json.dumps({"kernels": [
+    # each kernel's launches by main path, each counted from 0; "launches"
+    # is their sum
+    by_path = {name: {} for name in COUNTERS if name != "radar_bwd_loc_lam"}
+    for path, counts in (("cli", launches), ("train", train_launches),
+                         ("spec_cli", spec_launches),
+                         ("radar_dense_path", {
+                             k: dense_totals[k]["launches"]
+                             for k in DENSE_KERNELS}),
+                         ("remat", remat_launches),
+                         ("seqpar", seqpar_launches), ("demo", demo_launches)):
+        for name, n in counts.items():
+            if name in by_path and n:
+                by_path[name][path] = n
+    # the earlier rows' paths: #1 and #3 from cli, #2, #4, #5 from train
+    by_path["sgcn_fwd"].pop("train", None)
+    by_path["sgcn_bwd"].pop("train", None)
+    rows = [
         {"name": "sgcn_fwd", "route": "cuda", "source": SGCN_SOURCE,
-         "replaces": SGCN_REPLACES, "launches": launches["sgcn_fwd"],
-         **totals},
+         "replaces": SGCN_REPLACES, **totals},
         {"name": "sgcn_bwd", "route": "cuda", "source": SGCN_BWD_SOURCE,
-         "replaces": SGCN_BWD_REPLACES, "launches": launches["sgcn_bwd"],
-         **bwd_totals},
+         "replaces": SGCN_BWD_REPLACES, **bwd_totals},
     ] + [
         {"name": name, "route": "cuda",
          "source": f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu",
-         "replaces": KERNEL_REPLACES[name],
-         "launches": spec_launches[name], **spec_totals[name]}
+         "replaces": KERNEL_REPLACES[name], **spec_totals[name]}
         for name in SPEC_KERNELS
     ] + [
         {"name": name, "route": "cuda",
          "source": KERNEL_SOURCES.get(
              name, f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu"),
-         "replaces": KERNEL_REPLACES[name],
-         "launches": train_launches[name], **new_totals[name]}
+         "replaces": KERNEL_REPLACES[name], **new_totals[name]}
         for name in ("sgcn_fwd_stats", "tconv_fwd", "tconv_bwd")
     ] + [
         {"name": name, "route": "cuda",
          "source": f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu",
          "replaces": KERNEL_REPLACES[name], **dense_totals[name]}
         for name in DENSE_KERNELS
-    ]}))
+    ]
+    for row in rows:
+        row["launches"] = sum(by_path[row["name"]].values())
+        row["launches_by_path"] = by_path[row["name"]]
+    print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

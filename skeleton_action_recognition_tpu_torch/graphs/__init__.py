@@ -16,8 +16,12 @@ from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     Graph,
     spatial_adjacency,
 )
+from skeleton_action_recognition_tpu_torch.graphs.azure_kinect import (
+    AZURE_KINECT_EDGES,
+)
 
 __all__ = [
+    "AZURE_KINECT_EDGES",
     "BONE_PAIRS",
     "Graph",
     "INWARD",

@@ -23,10 +23,15 @@ included, is taken over the global batch
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     NUM_JOINTS,
@@ -59,6 +64,19 @@ BLOCK_PLAN = (
     (256, 2, True),
     (256, 1, True),
     (256, 1, True),
+)
+
+
+# what the remat policies keep of a block's forward for its backward:
+# "full" its inputs alone, "dots" also the outputs of the matrix products
+# that F.linear and einsum lower to (jax.checkpoint_policies.checkpoint_dots
+# keeps dot_general's). Convolutions, BatchNorm, ReLU and the CUDA kernels
+# (launched outside the dispatcher) are recomputed under both.
+REMAT_POLICIES = ("full", "dots")
+SAVED_PRODUCTS = (
+    torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default,
 )
 
 
@@ -330,11 +348,24 @@ def adjacency(module: nn.Module):
     return module.adjacency if a is None else a
 
 
-def remat_block(block: nn.Module, x, a):
+def check_remat_policy(policy: str) -> str:
+    """``policy`` if it is one of ``REMAT_POLICIES``, else ``ValueError``
+    (the JAX model takes any other name as "full")."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {policy!r}")
+    return policy
+
+
+def remat_block(block: nn.Module, x, a, policy: str = "full"):
     """``block(x, a)`` under ``torch.utils.checkpoint``: its activations are
     dropped after the forward and recomputed in the backward (flax
-    ``nn.remat``, policy "full"). The recompute leaves the BatchNorm
-    running statistics as the first run set them, as flax does."""
+    ``nn.remat``). ``policy`` "full" keeps the block's inputs alone; "dots"
+    (``jax.checkpoint_policies.checkpoint_dots``) also keeps the outputs of
+    ``SAVED_PRODUCTS``, through a selective-checkpoint context, so that the
+    backward recomputes no matrix product. The recompute leaves the
+    BatchNorm running statistics as the first run set them, as flax
+    does."""
     first = [True]
 
     def run(x, a):
@@ -342,7 +373,11 @@ def remat_block(block: nn.Module, x, a):
             first[0] = False
             return block(x, a)
 
-    return checkpoint(run, x, a, use_reentrant=False)
+    options = {}
+    if check_remat_policy(policy) == "dots":
+        options["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(SAVED_PRODUCTS))
+    return checkpoint(run, x, a, use_reentrant=False, **options)
 
 
 class STGCNBackbone(nn.Module):
@@ -353,18 +388,20 @@ class STGCNBackbone(nn.Module):
     ``x = module(x, a)`` after block ``extra_block_index`` and registered
     under ``name`` (ST-PGCN's ``projection``). With ``remat``, each
     :class:`STConvBlock`, and not the extra block, is rematerialized when
-    gradients are taken, as in JAX. ``sgcn_stats`` applies to the blocks
-    whose spatial conv is fused; ``fused_tconv`` to the stride-1 blocks."""
+    gradients are taken, as in JAX, under ``remat_policy`` (see
+    :func:`remat_block`). ``sgcn_stats`` applies to the blocks whose
+    spatial conv is fused; ``fused_tconv`` to the stride-1 blocks."""
 
     def __init__(
         self, num_classes: int = 60, dtype=None, fused_sgcn: bool = False,
         fused_sgcn_min_channels: int = 0, remat: bool = True,
         fused_tconv: bool = False, sgcn_stats: bool = False,
         sgcn_factory=None, extra_block_index=-1,
-        extra_block_factory=None, generator=None,
+        extra_block_factory=None, generator=None, remat_policy: str = "full",
     ):
         super().__init__()
         self.remat = remat
+        self.remat_policy = check_remat_policy(remat_policy)
         self.extra_block_index = extra_block_index
         self.extra_block_name = None
         self.data_bn = DataBatchNorm(NUM_JOINTS * IN_CHANNELS, dtype)
@@ -389,7 +426,8 @@ class STGCNBackbone(nn.Module):
         remat = self.remat and torch.is_grad_enabled()
         for i in range(len(BLOCK_PLAN)):
             block = getattr(self, f"block_{i}")
-            x = remat_block(block, x, a) if remat else block(x, a)
+            x = (remat_block(block, x, a, self.remat_policy) if remat
+                 else block(x, a))
             if i == self.extra_block_index and self.extra_block_name:
                 x = getattr(self, self.extra_block_name)(x, a)
         # pool in f32: a bf16 sum over T*V ~ 7.5k terms loses mantissa
@@ -406,10 +444,12 @@ class Model(nn.Module):
     routes the spatial conv of every block with at least
     ``fused_sgcn_min_channels`` filters through the CUDA kernels.
     ``remat`` (default on, as in the JAX model) recomputes each block in
-    the backward pass. ``sgcn_stats`` (with ``fused_sgcn``) feeds BN1's
-    batch statistics from the spatial kernel's epilogue, and
-    ``fused_tconv`` runs the stride-1 blocks' temporal chain through the
-    fused kernels, both in training only (:class:`STConvBlock`).
+    the backward pass, keeping its inputs alone (``remat_policy="full"``)
+    or its matrix products' outputs too (``"dots"``; another name raises).
+    ``sgcn_stats`` (with ``fused_sgcn``) feeds BN1's batch statistics from
+    the spatial kernel's epilogue, and ``fused_tconv`` runs the stride-1
+    blocks' temporal chain through the fused kernels, both in training
+    only (:class:`STConvBlock`).
     ``trainable_adjacency`` makes the spatial-partition stack a parameter,
     ``adjacency_matrix`` (the flax ``params['adjacency_matrix']``); the
     fused kernels take it as a constant, so the two exclude each other.
@@ -422,6 +462,7 @@ class Model(nn.Module):
         fused_sgcn_min_channels: int = 0, remat: bool = True,
         trainable_adjacency: bool = False, fused_tconv: bool = False,
         sgcn_stats: bool = False, device=None, generator=None,
+        remat_policy: str = "full",
     ):
         super().__init__()
         if fused_sgcn and trainable_adjacency:
@@ -433,7 +474,7 @@ class Model(nn.Module):
             num_classes, dtype=dtype, fused_sgcn=fused_sgcn,
             fused_sgcn_min_channels=fused_sgcn_min_channels, remat=remat,
             fused_tconv=fused_tconv, sgcn_stats=sgcn_stats,
-            generator=generator,
+            generator=generator, remat_policy=remat_policy,
         )
         register_adjacency(self, spatial_adjacency(), trainable_adjacency)
         self.to(device)

@@ -16,7 +16,9 @@ its VJP with respect to ``src``, ``dst``, ``c``, ``loc`` and ``lambda``,
 the operator being a constant. :class:`DenseRadar` ties them into an
 autograd Function;
 :func:`radar_return_fused` is the op, with the gather and the bone lengths
-(:func:`bone_length_mean_sq`) in plain torch around it.
+(:func:`bone_length_mean_sq`) in plain torch around it
+(:func:`radar_return_rows` its kernel stage on any block of rows, which the
+sequence-parallel ops of :mod:`.virtual_radar` run on each rank's).
 
 The spline route (``radar_return_spline`` and its ``_spline_kernel_op``),
 the spectrogram model's. The skeleton's joints are smoothed and upsampled
@@ -607,22 +609,34 @@ def dense_band(w, t_out: int):
     )
 
 
+def bone_length_sum(x_raw, rows,
+                    edges: Sequence[Tuple[int, int]] = tuple(RADAR_EDGES),
+                    tile: int = TILE):
+    """``sum_t |bone| (N, E * M)`` over the operator ``rows (R, T_in)`` (the
+    whole ``(T_out, T_in)`` resampling operator, or one rank's block of its
+    rows; all-zero rows add nothing) of the edges' bones in joints ``x_raw
+    (N, 3, T_in, V, M)``, ``tile`` rows at a time, so that the upsampled
+    bones never exist in full. The norm's gradient at zero is zero
+    (all-zero bodies are routine in NTU clips)."""
+    src, dst = gather_edges(x_raw, edges)
+    bone = dst - src  # (N, 3, T_in, E, M)
+    total = 0.0
+    for w_tile in rows.split(tile):
+        b = torch.einsum("ot,nctem->ncoem", w_tile, bone)
+        total = total + safe_norm(b, 1).sum(1)
+    return total.flatten(1)
+
+
 def bone_length_mean_sq(x_raw, pad_operator,
                         edges: Sequence[Tuple[int, int]] = tuple(RADAR_EDGES),
                         tile: int = TILE):
     """``c = (mean_t |bone|)^2 (N, E * M)`` of the edges' bones in joints
     ``x_raw (N, 3, T_in, V, M)`` upsampled by ``pad_operator (T_out,
     T_in)``, the mean over the ``T_out`` rows: the JAX package's
-    ``_bone_length_mean_sq``, ``tile`` operator rows at a time, so that the
-    upsampled bones never exist in full. The norm's gradient at zero is
-    zero (all-zero bodies are routine in NTU clips)."""
-    src, dst = gather_edges(x_raw, edges)
-    bone = dst - src  # (N, 3, T_in, E, M)
-    total = 0.0
-    for w_tile in pad_operator.split(tile):
-        b = torch.einsum("ot,nctem->ncoem", w_tile, bone)
-        total = total + safe_norm(b, 1).sum(1)
-    return ((total / pad_operator.shape[0]) ** 2).flatten(1)
+    ``_bone_length_mean_sq``, as :func:`bone_length_sum` over every row
+    and its finish ``(sum / T_out)^2``."""
+    total = bone_length_sum(x_raw, pad_operator, edges, tile)
+    return (total / pad_operator.shape[0]) ** 2
 
 
 def _dense_positions(w_rows, feat):
@@ -838,6 +852,21 @@ dense_radar.launches = 0
 dense_radar_backward.launches = 0
 
 
+def radar_return_rows(x_raw, rows, c, radar_location, wavelength,
+                      edges: Sequence[Tuple[int, int]] = tuple(RADAR_EDGES),
+                      tile: int = TILE):
+    """The kernel stage of :func:`radar_return_fused` on the operator's
+    rows ``rows (R, T_in)`` (all of them, or one rank's block) with the
+    squared mean bone lengths ``c (N, E * M)``: ``(re, im)``, each ``(N,
+    R)``. The rows are padded to a multiple of ``tile`` (which sets only
+    that padding) and :func:`dense_radar` computes the first ``R``."""
+    t = rows.shape[0]
+    src, dst = gather_features(x_raw, edges)
+    rows = torch.nn.functional.pad(rows.detach(), (0, 0, 0, -t % tile))
+    return dense_radar(rows, src.contiguous(), dst.contiguous(),
+                       c.contiguous(), radar_location, wavelength, t)
+
+
 def radar_return_fused(
     x_raw,
     pad_operator,
@@ -852,20 +881,14 @@ def radar_return_fused(
     ``radar_location (3,)`` at the scalar ``wavelength``: the JAX package's
     ``radar_return_fused``, with its signature and result.
 
-    The operator's rows are padded to a multiple of ``tile`` (which sets
-    only that padding: the result does not depend on it) and the kernel
-    stage :func:`dense_radar` computes the first ``T_out``. Differentiable
-    in ``x_raw``, the location and the wavelength, through the gather and
-    the bone lengths :func:`bone_length_mean_sq` (plain torch, as they are
+    The kernel stage is :func:`radar_return_rows`. Differentiable in
+    ``x_raw``, the location and the wavelength, through the gather and the
+    bone lengths :func:`bone_length_mean_sq` (plain torch, as they are
     plain autodiff in JAX); the operator is a constant."""
     device = x_raw.device
     w = torch.as_tensor(pad_operator, dtype=torch.float32, device=device)
-    t_out = w.shape[0]
-    t_pad = -(-t_out // tile) * tile
-    src, dst = gather_features(x_raw, edges)
-    c = bone_length_mean_sq(x_raw, w, edges, tile)
-    w = torch.nn.functional.pad(w.detach(), (0, 0, 0, t_pad - t_out))
     loc = torch.as_tensor(radar_location, dtype=torch.float32, device=device)
     lam = torch.as_tensor(wavelength, dtype=torch.float32, device=device)
-    return dense_radar(w, src.contiguous(), dst.contiguous(), c.contiguous(),
-                       loc, lam, t_out)
+    return radar_return_rows(x_raw, w, bone_length_mean_sq(x_raw, w, edges,
+                                                           tile),
+                             loc, lam, edges, tile)

@@ -1,8 +1,10 @@
-"""VirtualRadar: the radar return of a skeleton, in plain torch.
+"""VirtualRadar: the radar return of a skeleton, in plain torch, and its
+sequence-parallel form.
 
 Counterpart of ``skeleton_action_recognition_tpu/ops/virtual_radar.py``
 (``radar_return``, ``radar_return_upsampled``,
-``virtual_radar_spectrogram``). Each bone (edge) is an ellipsoid
+``virtual_radar_spectrogram``, ``radar_return_sharded``,
+``radar_spectrogram_sharded``). Each bone (edge) is an ellipsoid
 scatterer: its radar-cross-section amplitude and round-trip phase ``4 pi d
 / lambda`` are computed per time step, and the complex returns of all
 edges and bodies are summed into one signal. These are the spectrogram
@@ -12,6 +14,15 @@ model's routes without the fused kernel: ``num_pad_frames <= 1``
 whole layer on raw frames as one function. Autograd differentiates them;
 the norms have a zero gradient at zero, because all-zero second bodies are
 routine in NTU clips.
+
+The sequence-parallel ops split the upsampled time axis over the ranks of
+a ``torch.distributed`` process group (the JAX package's mesh axis): each
+rank computes its block of the resampling operator's rows through the
+dense radar kernels (``ops/radar.py::dense_radar``, #8 and #9), the mean
+bone length is summed over the ranks, and the spectrogram's frames come
+from each rank's own samples and its neighbours' halos through the STFT
+kernels (``ops/stft_logmag.py``, #10 and #11). The collectives are
+``parallel/distributed.py``'s.
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
 )
 from skeleton_action_recognition_tpu_torch.ops import stft
 from skeleton_action_recognition_tpu_torch.ops.precision import einsum_f32
+from skeleton_action_recognition_tpu_torch.ops.stft_logmag import stft_logmag
+from skeleton_action_recognition_tpu_torch.parallel import distributed
 
 
 @functools.lru_cache(maxsize=8)
@@ -175,3 +188,121 @@ def virtual_radar_spectrogram(
     re, im = radar_return(x, radar_location, wavelength, edges)
     s_re, s_im = stft.stft_complex(re, im, hop_length, cos_basis, sin_basis)
     return stft.log_magnitude(s_re, s_im)
+
+
+def _rank_signal(x_raw, pad_operator, radar_location, wavelength, group,
+                 edges, rows_per_rank):
+    """This rank's block of ``rows_per_rank`` rows of ``pad_operator``
+    (padded with zero rows to that many a rank) through the dense radar
+    kernels: ``(re, im)``, each ``(N, rows_per_rank)``. The bone lengths'
+    sum is this rank's rows' sum, summed over the ranks; the joints, the
+    location, the wavelength and ``c`` are replicated inputs, so that their
+    gradients are summed over the ranks."""
+    from skeleton_action_recognition_tpu_torch.ops import radar
+
+    rank, world = distributed.rank(group), distributed.world_size(group)
+    device = x_raw.device
+    w = torch.as_tensor(pad_operator, dtype=torch.float32, device=device)
+    t_out = w.shape[0]
+    w = torch.nn.functional.pad(w, (0, 0, 0, rows_per_rank * world - t_out))
+    rows = w[rank * rows_per_rank:(rank + 1) * rows_per_rank]
+    x = distributed.replicated_input(x_raw, group)
+    loc, lam = (distributed.replicated_input(torch.as_tensor(
+        v, dtype=torch.float32, device=device), group)
+        for v in (radar_location, wavelength))
+    total = distributed.sum_partials(radar.bone_length_sum(x, rows, edges),
+                                     group)
+    # every rank uses c for its own rows alone: its cotangent is summed
+    c = distributed.replicated_input((total / t_out) ** 2, group)
+    return radar.radar_return_rows(x, rows, c, loc, lam, edges)
+
+
+def radar_return_sharded(
+    x_raw,
+    pad_operator,
+    radar_location,
+    wavelength,
+    group=None,
+    edges: Sequence[Tuple[int, int]] = tuple(RADAR_EDGES),
+):
+    """Sequence-parallel radar return: the rows of the ``(T_out, T_in)``
+    resampling operator ``pad_operator`` split over the ranks of ``group``
+    (None: the default process group), as the JAX package shards them over
+    a mesh axis. The operator's rows are padded with zero rows to a
+    multiple of the world size, and each rank computes its block through
+    kernel #8 (#9 in the backward); the time-mean bone length is summed
+    over the ranks, and the signal's blocks are gathered.
+
+    Returns ``(re, im)``, each ``(N, T_out)``, the same on every rank;
+    differentiable in ``x_raw``, the location and the wavelength, every
+    rank getting the gradient of one process. Without a process group the
+    result is ``ops/radar.py::radar_return_fused``'s."""
+    world = distributed.world_size(group)
+    t_out = pad_operator.shape[0]
+    rows_per_rank = -(-t_out // world)
+    re, im = _rank_signal(x_raw, pad_operator, radar_location, wavelength,
+                          group, edges, rows_per_rank)
+    return (distributed.gather_slices(re, 1, group)[:, :t_out],
+            distributed.gather_slices(im, 1, group)[:, :t_out])
+
+
+def radar_spectrogram_sharded(
+    x_raw,
+    pad_operator,
+    radar_location,
+    wavelength,
+    group=None,
+    edges: Sequence[Tuple[int, int]] = tuple(RADAR_EDGES),
+    n_fft: int = 256,
+    hop_length: int = 16,
+):
+    """Sequence-parallel radar -> log-magnitude spectrogram: the signal and
+    the STFT frames split over the ranks of ``group`` (None: the default
+    process group); the signal is never gathered. Each rank computes its
+    ``T_out / world`` samples as :func:`radar_return_sharded` does, takes
+    the ``n_fft / 2`` samples on each side from its neighbours (the first
+    and last ranks reflect their own edge, as the centered STFT pads), and
+    computes its ``T_loc / hop_length`` frames through kernel #10 (#11 in
+    the backward) with ``center=False``; the last rank's segment holds the
+    final (``T_out / hop_length + 1``-th) frame as well. The frames are
+    gathered.
+
+    ``T_out`` must split into hop-aligned blocks, one a rank, each at least
+    ``n_fft / 2`` long (``ValueError`` otherwise, as in JAX). Returns ``(N,
+    n_fft, T_out / hop_length + 1)``, zero Doppler centered, the same on
+    every rank; differentiable in ``x_raw``, the location and the
+    wavelength, every rank getting the gradient of one process."""
+    rank, world = distributed.rank(group), distributed.world_size(group)
+    t_out = pad_operator.shape[0]
+    if t_out % world or (t_out // world) % hop_length:
+        raise ValueError(
+            f"T_out={t_out} must split evenly into {world} hop-aligned "
+            "shards"
+        )
+    t_loc = t_out // world
+    pad = n_fft // 2
+    if pad > t_loc:
+        raise ValueError("halo exceeds local shard length")
+    sig = torch.stack(_rank_signal(x_raw, pad_operator, radar_location,
+                                   wavelength, group, edges, t_loc))
+    left, right = distributed.halo_exchange(sig[..., :pad], sig[..., -pad:],
+                                            group)
+    if rank == 0:  # the centered STFT's reflect padding of the first sample
+        left = sig[..., 1:pad + 1].flip(-1)
+    if rank == world - 1:
+        right = sig[..., -pad - 1:-1].flip(-1)
+    re, im = torch.cat([left, sig, right], -1)  # each (N, T_loc + n_fft)
+    cos_np, sin_np = stft.stft_basis(n_fft)
+    cos = torch.tensor(cos_np, device=sig.device)
+    sin = torch.tensor(sin_np, device=sig.device)
+    # T_loc / hop + 1 frames; the last one is the next rank's first, and on
+    # the last rank the spectrogram's final frame
+    frames = stft_logmag(re, im, hop_length, cos, sin, center=False)
+    f_loc = t_loc // hop_length
+    last = frames[..., f_loc:]
+    if rank != world - 1:
+        last = torch.zeros_like(last)
+    return torch.cat([
+        distributed.gather_slices(frames[..., :f_loc], 2, group),
+        distributed.sum_partials(last, group),
+    ], -1)

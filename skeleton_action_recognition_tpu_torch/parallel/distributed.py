@@ -70,12 +70,16 @@ def active() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def rank() -> int:
-    return dist.get_rank() if active() else 0
+def rank(group=None) -> int:
+    """This process's rank in ``group`` (None: the default group); 0
+    without a process group."""
+    return dist.get_rank(group) if active() else 0
 
 
-def world_size() -> int:
-    return dist.get_world_size() if active() else 1
+def world_size(group=None) -> int:
+    """The ranks in ``group`` (None: the default group); 1 without a
+    process group."""
+    return dist.get_world_size(group) if active() else 1
 
 
 def local_rank() -> int:
@@ -144,3 +148,119 @@ def global_means(*means: torch.Tensor, count: int):
 def barrier() -> None:
     if active():
         dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# The collectives of the sequence-parallel ops (``ops/virtual_radar.py``'s
+# ``radar_return_sharded`` and ``radar_spectrogram_sharded``). Every rank
+# computes the same replicated loss from the gathered result, and ends with
+# the gradient one process would compute. Each is built on ``all_reduce``
+# alone: gloo takes only ``all_reduce`` and ``broadcast`` for CUDA tensors,
+# and NCCL does not put two ranks on one card. Without a process group
+# (``group`` None and none initialized) each is the identity, and the halo
+# exchange finds no neighbour.
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_partials(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the ranks of each rank's partial ``x`` (a sum over its
+    own rows), the same on every rank. The backward is the identity: the
+    replicated result's cotangent is each partial's. Where every rank uses
+    the result for its own rows alone, pass it through
+    :func:`replicated_input` as well, so that the cotangent it hands back
+    is the sum of the ranks' uses."""
+    return _SumPartials.apply(x, group) if active() else x
+
+
+class _GatherSlices(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.rank, ctx.size = dim, rank(group), x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] *= world_size(group)
+        out = x.new_zeros(shape)
+        out.narrow(dim, ctx.rank * x.shape[dim], x.shape[dim]).copy_(x)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        own = grad.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size)
+        return own.contiguous(), None, None
+
+
+def gather_slices(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The ranks' equal slices ``x`` laid end to end along ``dim`` in rank
+    order, on every rank: each rank writes its slice into a zeroed buffer,
+    and one ``all_reduce`` sums them. The backward takes this rank's slice
+    of the (replicated) cotangent."""
+    return _GatherSlices.apply(x, dim, group) if active() else x
+
+
+class _ReplicatedInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def replicated_input(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x``, held alike on every rank, which each rank uses for its own
+    part of the work. The forward is the identity; the backward sums the
+    ranks' cotangents, so that every rank gets the whole gradient."""
+    return _ReplicatedInput.apply(x, group) if active() else x
+
+
+class _HaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, first, last, group):
+        me, world = rank(group), world_size(group)
+        ctx.group, ctx.rank, ctx.world = group, me, world
+        slots = first.new_zeros((world, 2) + tuple(first.shape))
+        slots[me, 0] = first
+        slots[me, 1] = last
+        dist.all_reduce(slots, group=group)
+        from_left = slots[me - 1, 1] if me > 0 else torch.zeros_like(last)
+        from_right = (slots[me + 1, 0] if me < world - 1
+                      else torch.zeros_like(first))
+        return from_left, from_right
+
+    @staticmethod
+    def backward(ctx, g_left, g_right):
+        me, world = ctx.rank, ctx.world
+        slots = g_left.new_zeros((world, 2) + tuple(g_left.shape))
+        if me > 0:  # the left halo was the left neighbour's last samples
+            slots[me - 1, 1] = g_left
+        if me < world - 1:
+            slots[me + 1, 0] = g_right
+        dist.all_reduce(slots, group=ctx.group)
+        return slots[me, 0], slots[me, 1], None
+
+
+def halo_exchange(first: torch.Tensor, last: torch.Tensor, group=None):
+    """``(from_left, from_right)``: the left neighbour's ``last`` and the
+    right neighbour's ``first`` (this rank's first and last samples along
+    a sharded axis, of one shape), zeros at the ends of the rank order and
+    without a process group. One ``all_reduce`` of every rank's two edges;
+    the backward sends the halos' cotangents back to their owners the same
+    way."""
+    if not active():
+        return torch.zeros_like(last), torch.zeros_like(first)
+    return _HaloExchange.apply(first, last, group)

@@ -70,11 +70,15 @@ def test_port_imports_with_jax_blocked():
         "import skeleton_action_recognition_tpu_torch.models.experimental\n"
         "import skeleton_action_recognition_tpu_torch.models.lstm_sampler\n"
         "import skeleton_action_recognition_tpu_torch.models.export\n"
+        "import skeleton_action_recognition_tpu_torch.data.demo\n"
+        "import skeleton_action_recognition_tpu_torch.graphs.azure_kinect\n"
         "from skeleton_action_recognition_tpu_torch.models import (\n"
         "    model_names)\n"
         "assert {'stgcn', 'stgin', 'stpgcn', 'stpgcnp', 'experimental',\n"
         "        'spectrogram'} <= set(model_names())\n"
         "import chip_smoke\n"
+        "import runpy\n"
+        "runpy.run_path('examples/virtual_radar_demo_torch.py')\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO_ROOT,
@@ -90,9 +94,42 @@ def test_no_port_source_names_jax():
         r"^\s*(import|from)\s+"
         r"(jax|flax|optax|skeleton_action_recognition_tpu)\b", re.M
     )
-    sources = list(PORT_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+    sources = list(PORT_DIR.rglob("*.py")) + [
+        REPO_ROOT / "chip_smoke.py",
+        REPO_ROOT / "examples" / "virtual_radar_demo_torch.py"]
     offenders = [
         str(p.relative_to(REPO_ROOT)) for p in sources
         if pattern.search(p.read_text())
     ]
     assert len(sources) > 5 and offenders == []
+
+
+def test_ops_and_graphs_export_what_jax_exports():
+    """The names of the JAX package's ``ops.__all__`` and
+    ``graphs.__all__`` are all among the port's, which adds
+    ``radar_spectrogram_sharded``; importing the port's ``ops`` (with jax
+    blocked) builds no CUDA source."""
+    from skeleton_action_recognition_tpu import graphs as jax_graphs
+    from skeleton_action_recognition_tpu import ops as jax_ops
+    from skeleton_action_recognition_tpu_torch import graphs, ops
+
+    assert set(jax_ops.__all__) <= set(ops.__all__)
+    assert set(jax_graphs.__all__) <= set(graphs.__all__)
+    assert "radar_spectrogram_sharded" in ops.__all__
+    for module in (ops, graphs):
+        assert all(hasattr(module, name) for name in module.__all__)
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'optax',\n"
+        "             'skeleton_action_recognition_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from skeleton_action_recognition_tpu_torch import ops\n"
+        "from skeleton_action_recognition_tpu_torch.ops import build\n"
+        "assert build.load_library.cache_info().currsize == 0\n"
+        "assert build.kernel_function.cache_info().currsize == 0\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr

@@ -1,5 +1,6 @@
-"""One rank of a data-parallel job on the CPU, for the port's parallel
-tests (``test_torch_parallel.py``, ``test_torch_parallel_paths.py``). It
+"""One rank of a data-parallel or sequence-parallel job on the CPU, for
+the port's parallel tests (``test_torch_parallel.py``,
+``test_torch_parallel_paths.py``, ``test_torch_seqpar_radar.py``). It
 holds no test. Imports no jax: a rank runs the port alone, as on the
 card's machine.
 
@@ -112,6 +113,41 @@ def run(job, dp):
             "rows": [len(x) for x, _ in batches]}
 
 
+def seqpar(job):
+    """The sequence-parallel radar ops on this rank: for each of the job's
+    ``cases``, the op's result and, where the case gives cotangents, the
+    gradients of ``sum(out * cotangent)`` in the joints, the location and
+    the wavelength; for each of its ``refused`` operators, the
+    ``ValueError`` the spectrogram op raises."""
+    from skeleton_action_recognition_tpu_torch import ops
+
+    out = {}
+    for name, case in job["cases"].items():
+        x = torch.tensor(case["x"], requires_grad=True)
+        loc = torch.tensor(case["loc"], requires_grad=True)
+        lam = torch.tensor(case["lam"], requires_grad=True)
+        w = torch.from_numpy(case["w"])
+        if case["op"] == "return":
+            result = ops.radar_return_sharded(x, w, loc, lam)
+        else:
+            result = (ops.radar_spectrogram_sharded(x, w, loc, lam),)
+        out[name] = {"out": [r.detach().numpy() for r in result]}
+        if "cotangents" in case:
+            loss = sum((r * torch.from_numpy(g)).sum()
+                       for r, g in zip(result, case["cotangents"]))
+            loss.backward()
+            out[name]["grads"] = [t.grad.numpy() for t in (x, loc, lam)]
+    for name, w in job.get("refused", {}).items():
+        try:
+            ops.radar_spectrogram_sharded(
+                torch.zeros(1, 3, w.shape[1], 25, 2), torch.from_numpy(w),
+                torch.zeros(3), torch.tensor(5e-4))
+            out[name] = None
+        except ValueError as err:
+            out[name] = str(err)
+    return out
+
+
 def main(rank, world, init_file, job_file, out_file):
     torch.set_num_threads(2)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
@@ -121,7 +157,8 @@ def main(rank, world, init_file, job_file, out_file):
     dp = DataParallel()
     assert (dp.rank, dp.world_size) == (rank, world)
     job = torch.load(job_file, weights_only=False)
-    torch.save(run(job, dp), out_file)
+    torch.save(seqpar(job) if job.get("model") == "seqpar" else run(job, dp),
+               out_file)
     torch.distributed.destroy_process_group()
 
 
