@@ -304,6 +304,7 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from scripts import corpus_lib
+from skeleton_action_recognition_tpu_torch import tracing
 from skeleton_action_recognition_tpu_torch.cli import (
     data_gen,
     ensemble,
@@ -1182,13 +1183,13 @@ def phase_slice(device, requests):
     state = predictor.model.state_dict()
 
     # the main path: the counts cover exactly these requests
-    sgcn.fused_graph_conv.launches = 0
+    reset_launches()
     probs, per_request = {}, {}
     for n, x in requests.items():
-        before = sgcn.fused_graph_conv.launches
+        before = tracing.counters()["launch.sgcn_fwd"]
         probs[n] = predictor(x)
-        per_request[n] = sgcn.fused_graph_conv.launches - before
-    launches = sgcn.fused_graph_conv.launches
+        per_request[n] = tracing.counters()["launch.sgcn_fwd"] - before
+    launches = tracing.counters()["launch.sgcn_fwd"]
 
     for n, p in probs.items():
         check(p.shape == (n, 60), f"probabilities of shape {p.shape}")
@@ -1447,7 +1448,7 @@ def phase_export(device, state, requests, folded):
                 if n in FOLDED_CPU_REQUESTS:
                     cpu_errors[n] = logit_errors(logits, cpu(x).numpy(),
                                                  FOLDED_CPU_TOL[route])
-            launches = read_launches(tuple(COUNTERS))
+            launches = read_launches(COUNTERS)
             records[route] = dict(
                 build_s=build_s,
                 weight_mb=nbytes(*resident_tensors(pred)) / 2**20,
@@ -1501,29 +1502,19 @@ def phase_export(device, state, requests, folded):
          int8_shapes=int8_shapes(device))
 
 
-COUNTERS = {
-    "sgcn_fwd": sgcn.fused_graph_conv,
-    "sgcn_fwd_stats": sgcn.fused_graph_conv_stats,
-    "sgcn_bwd": sgcn.fused_graph_conv_backward,
-    "tconv_fwd": tconv.affine_relu_tconv,
-    "tconv_bwd": tconv.affine_relu_tconv_backward,
-    "radar_fwd": radar.spline_radar,
-    "radar_bwd": radar.spline_radar_backward,
-    "radar_bwd_loc_lam": radar.spline_radar_loc_lam_backward,
-    "radar_dense_fwd": radar.dense_radar,
-    "radar_dense_bwd": radar.dense_radar_backward,
-    "stft_fwd": stft_logmag.stft_logmag,
-    "stft_bwd": stft_logmag.stft_logmag_backward,
-}
+# the port's kernel entry points, as ops.build.launch counts their calls
+COUNTERS = ("sgcn_fwd", "sgcn_fwd_stats", "sgcn_bwd", "tconv_fwd",
+            "tconv_bwd", "radar_fwd", "radar_bwd", "radar_bwd_loc_lam",
+            "radar_dense_fwd", "radar_dense_bwd", "stft_fwd", "stft_bwd")
 
 
 def reset_launches():
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    tracing.reset_counters()
 
 
 def read_launches(names=("sgcn_fwd", "sgcn_bwd")):
-    return {name: COUNTERS[name].launches for name in names}
+    counts = tracing.counters()
+    return {name: counts[f"launch.{name}"] for name in names}
 
 
 def train_runs(device, name, batch, configs=tuple(TRAIN_CONFIGS)):
@@ -1638,35 +1629,28 @@ def compare_fused_tconv(name, summary):
 def trace(run, steps):
     """One ``torch.profiler`` trace of ``steps`` calls of ``run``: the
     profiler, the device's busy and idle time per step, and its device
-    time by kernel name (us, all steps)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    time by kernel, copy and fill name (us, all steps). Busy and idle are
+    the benchmark's (``benchmark/harness/trace.py``): busy is the union of
+    the kernels', copies' and fills' intervals (a ``record_function``
+    range is not busy), idle the rest of the window, the host's clock from
+    the synchronize before the first call to the one after the last
+    (``span_ms_per_step``)."""
+    from benchmark.harness import trace as bench_trace
 
     torch.cuda.synchronize()
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
+    with bench_trace.profiler() as prof:
+        start = time.perf_counter()
         for _ in range(steps):
             run()
         torch.cuda.synchronize()
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events() if e.device_type == DeviceType.CUDA
-    )
-    if not spans:
-        return prof, {"device_events": 0}, {}
-    busy, end, by_name = 0.0, spans[0][0], {}
-    for start, stop, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (stop - start)
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    span = end - spans[0][0]
+        window = time.perf_counter() - start
+    reduced = bench_trace.read(prof, window)
     return prof, {
-        "device_events": len(spans),
-        "busy_ms_per_step": busy / 1e3 / steps,
-        "span_ms_per_step": span / 1e3 / steps,
-        "idle_share": 1.0 - busy / span,
-    }, by_name
+        "device_events": reduced["device_work"],
+        "busy_ms_per_step": reduced["busy_s"] * 1e3 / steps,
+        "span_ms_per_step": window * 1e3 / steps,
+        "idle_share": 1.0 - reduced["busy_s"] / window,
+    }, {name: s * 1e6 for name, s in reduced["by_name"].items()}
 
 
 def largest(times_us, steps=1, top=15):
@@ -2663,11 +2647,11 @@ def phase_eval_path(device):
         reset_launches()
         gnn_report, gnn_s = timed(lambda: evaluate.main(gnn_argv,
                                                         device=device))
-        gnn_launches = read_launches(tuple(COUNTERS))
+        gnn_launches = read_launches(COUNTERS)
         reset_launches()
         spec_report, spec_s = timed(lambda: evaluate.main(spec_argv,
                                                           device=device))
-        spec_launches = read_launches(tuple(COUNTERS))
+        spec_launches = read_launches(COUNTERS)
         weights = [str(w) for _, w in ENSEMBLE]
         reset_launches()
         ens_report, ens_s = timed(lambda: ensemble.main(flags + [
@@ -2675,7 +2659,7 @@ def phase_eval_path(device):
             "--checkpoints", *(ckpt[s] for s, _ in ENSEMBLE),
             "--weights", *weights, "--test-data-path", val["tfrecord"]],
             device=device))
-        ens_launches = read_launches(tuple(COUNTERS))
+        ens_launches = read_launches(COUNTERS)
         # the folded and W8 predictors (no warm-up: the export phase warmed
         # cuBLAS and cuDNN; each run folds the checkpoint on the host). The
         # predictor each run folds is kept for the recomputed report below
@@ -2695,7 +2679,7 @@ def phase_eval_path(device):
             check(len(built) == 1, f"evaluate {predictor} folded "
                   f"{len(built)} times")
             folded_runs[predictor] = (report, seconds,
-                                      read_launches(tuple(COUNTERS)),
+                                      read_launches(COUNTERS),
                                       built[0])
 
         # the reports, recomputed from each model's probabilities
@@ -2779,7 +2763,7 @@ def phase_eval_path(device):
                                             ckpt["joint"], 64, device)
         reset_launches()
         served = {k: fused(x) for k, x in requests.items()}
-        pred_launches = read_launches(tuple(COUNTERS))
+        pred_launches = read_launches(COUNTERS)
         pred_err = max(float(np.abs(served[k] - unfused(x)).max())
                        for k, x in requests.items())
         # the probabilities of random full-width weights are near 0 or 1:
@@ -3071,7 +3055,7 @@ def phase_zoo(device, x):
             emit("zoo_cli", model=name, clips=CLI_CLIPS, batch=CLI_BATCH,
                  **zoo_cli(device, name, dirs, tmp))
     emit("zoo_sampler", **zoo_sampler(device))
-    launches = read_launches(tuple(COUNTERS))
+    launches = read_launches(COUNTERS)
     emit("zoo", launches=launches)
     check(not any(launches.values()),
           f"the zoo launched kernels of the port: {launches}")
@@ -3105,7 +3089,7 @@ def ddp_cli_child(out, device, *argv):
     main_gnn.model_class = lambda name: StatsTconvModel
     reset_launches()
     history = main_gnn.main(list(argv), device=device)
-    launches = read_launches(tuple(COUNTERS))
+    launches = read_launches(COUNTERS)
     device = distributed.local_device(device)
     dp = DataParallel()
     model = StatsTconvModel(fused_sgcn=True, fused_sgcn_min_channels=128,
@@ -3175,7 +3159,7 @@ def ddp_steps(device, dp):
         m = step(xs, ys)
         out[name] = {
             "loss": m["loss"].item(), "count": int(m["count"].item()),
-            "launches": read_launches(tuple(COUNTERS)), "before": before,
+            "launches": read_launches(COUNTERS), "before": before,
             "state": {k: v.detach().cpu().clone()
                       for k, v in model.state_dict().items()},
         }

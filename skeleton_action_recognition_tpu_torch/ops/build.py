@@ -18,6 +18,8 @@ import pathlib
 import shutil
 import subprocess
 
+from skeleton_action_recognition_tpu_torch import tracing
+
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -107,10 +109,14 @@ def check_cuda(kernel: str, **tensors) -> None:
 
 def launch(fn, name: str, device, *args) -> None:
     """Call ``fn(*args, stream)`` on ``device``'s current stream; raise if
-    the launch was refused."""
+    the launch was refused. Every kernel of the package is launched here:
+    each call counts as ``launch.<name>`` (:func:`..tracing.counters`) and,
+    under a profiler, is the range ``op.<name>`` around the kernels the
+    entry point enqueues."""
     import torch
 
-    with torch.cuda.device(device):
+    tracing.count(f"launch.{name}")
+    with torch.cuda.device(device), tracing.span(f"op.{name}"):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")

@@ -299,7 +299,6 @@ def check_monomials(e):
         _MONOMIALS.pop(next(iter(_MONOMIALS)))
 
 
-
 def _forward_smem(ns4, em):
     return 4 * (2 * 3 * em * ns4 + 2 * em)
 
@@ -342,7 +341,6 @@ def _forward(e, src, dst, c, loc, lam, t_out):
         loc.data_ptr(), lam.data_ptr(), re.data_ptr(), im.data_ptr(),
         n, num_tiles, ns4, e.shape[2], f3 // 3, t_out,
     )
-    spline_radar.launches += 1
     return re, im
 
 
@@ -353,8 +351,8 @@ def spline_radar_backward(e, src, dst, c, loc, lam, gre, gim, t_out: int,
     them; with ``coef_grads=False`` only ``dloc`` and ``dlam`` (the same
     bits) and ``None`` for the others. A CPU tensor goes to that plain
     version; a CUDA tensor launches the kernel's full instance (counted in
-    ``spline_radar_backward.launches``) or its loc/lambda instance
-    (``spline_radar_loc_lam_backward.launches``), or raises, also on
+    ``launch.radar_bwd``) or its loc/lambda instance
+    (``launch.radar_bwd_loc_lam``), or raises, also on
     monomials ``e`` other than :func:`..resample.spline_tile_plan`'s
     (:func:`check_monomials`). The result is the same bit for bit from
     launch to launch."""
@@ -384,7 +382,6 @@ def spline_radar_backward(e, src, dst, c, loc, lam, gre, gim, t_out: int,
             "radar_bwd_loc_lam", src.device, *inputs, dloc.data_ptr(),
             dlam.data_ptr(), ws_s.data_ptr(), *shape,
         )
-        spline_radar_loc_lam_backward.launches += 1
         return None, None, None, dloc, dlam
     dsrc = torch.empty_like(src)
     ddst = torch.empty_like(dst)
@@ -397,7 +394,6 @@ def spline_radar_backward(e, src, dst, c, loc, lam, gre, gim, t_out: int,
         dsrc.data_ptr(), ddst.data_ptr(), dc.data_ptr(), dloc.data_ptr(),
         dlam.data_ptr(), ws_dc.data_ptr(), ws_s.data_ptr(), *shape,
     )
-    spline_radar_backward.launches += 1
     return dsrc, ddst, dc, dloc, dlam
 
 
@@ -405,7 +401,7 @@ def spline_radar_loc_lam_backward(e, src, dst, c, loc, lam, gre, gim,
                                   t_out: int):
     """``(dloc, dlam)``: :func:`spline_radar_backward` with
     ``coef_grads=False``, whose launches of kernel #7's loc/lambda instance
-    are counted in ``spline_radar_loc_lam_backward.launches``."""
+    are counted in ``launch.radar_bwd_loc_lam``."""
     return spline_radar_backward(e, src, dst, c, loc, lam, gre, gim, t_out,
                                  coef_grads=False)[3:]
 
@@ -441,17 +437,12 @@ def spline_radar(e, src, dst, c, loc, lam, t_out: int):
     must be the one-hot monomials of :func:`..resample.spline_tile_plan`
     (the kernels find each row's segment from them; others raise). CPU
     tensors go to the plain versions; CUDA tensors launch kernel #6
-    (counted in ``spline_radar.launches``) and, in the backward, kernel #7
+    (counted in ``launch.radar_fwd``) and, in the backward, kernel #7
     (its loc/lambda instance where only ``loc`` and ``lam`` need a
     gradient), or raise.
     """
     _check(e, src, dst, c, loc, lam, t_out)
     return SplineRadar.apply(e, src, dst, c, loc, lam, t_out)
-
-
-spline_radar.launches = 0
-spline_radar_backward.launches = 0
-spline_radar_loc_lam_backward.launches = 0
 
 
 def bone_length_mean_sq_spline(bcoef, e, t_out: int):
@@ -755,7 +746,6 @@ def _dense_forward(w, band, src, dst, c, loc, lam, t_out):
         c.data_ptr(), loc.data_ptr(), lam.data_ptr(), re.data_ptr(),
         im.data_ptr(), n, t_in, f3 // 3, t_out,
     )
-    dense_radar.launches += 1
     return re, im
 
 
@@ -764,7 +754,7 @@ def dense_radar_backward(w, src, dst, c, loc, lam, gre, gim, t_out: int):
     dc, dloc, dlam)`` as :func:`dense_radar_backward_reference` returns
     them. A CPU tensor goes to that plain version; a CUDA tensor launches
     the kernel over the operator's band (:func:`dense_band`, computed here;
-    counted in ``dense_radar_backward.launches``) or raises. The result is
+    counted in ``launch.radar_dense_bwd``) or raises. The result is
     the same bit for bit from launch to launch. At the trainer's shape the
     kernel takes a 1.5 GB workspace: the rows' cotangents ``(N, t_out, 6
     EM)`` and the split products ``(19, N, T_in, 6 EM)``."""
@@ -809,7 +799,6 @@ def _dense_backward(w, band, src, dst, c, loc, lam, gre, gim, t_out):
         dlam.data_ptr(), g.data_ptr(), ws_part.data_ptr(), ws_dc.data_ptr(),
         ws_s.data_ptr(), n, t_in, em, t_out,
     )
-    dense_radar_backward.launches += 1
     return dsrc, ddst, dc, dloc, dlam
 
 
@@ -840,16 +829,12 @@ def dense_radar(w, src, dst, c, loc, lam, t_out: int):
 
     Same arguments and result as :func:`dense_radar_reference`. CPU
     tensors go to the plain versions; CUDA tensors launch kernel #8
-    (counted in ``dense_radar.launches``) and, in the backward, kernel #9,
+    (counted in ``launch.radar_dense_fwd``) and, in the backward, kernel #9,
     or raise. The kernels contract each block of rows over its band of
     the operator (:func:`dense_band`): what they leave out is below f32
     rounding of the positions."""
     _check_dense(w, src, dst, c, loc, lam, t_out)
     return DenseRadar.apply(w, src, dst, c, loc, lam, t_out)
-
-
-dense_radar.launches = 0
-dense_radar_backward.launches = 0
 
 
 def radar_return_rows(x_raw, rows, c, radar_location, wavelength,

@@ -158,7 +158,6 @@ def _forward(x, weight, bias, a):
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), a.data_ptr(),
         out.data_ptr(), nm * t, c_in, c_out,
     )
-    fused_graph_conv.launches += 1
     return out
 
 
@@ -183,7 +182,6 @@ def _forward_stats(x, weight, bias, a):
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), a.data_ptr(),
         out.data_ptr(), ws.data_ptr(), sums.data_ptr(), nm * t, c_in, c_out,
     )
-    fused_graph_conv_stats.launches += 1
     return out, sums[:c_out], sums[c_out:]
 
 
@@ -230,7 +228,7 @@ def fused_graph_conv_backward(x, weight, a, g):
     cotangent, is cast to ``x.dtype``. Returns ``(dx, dweight, dbias)`` as
     :func:`graph_conv_backward_reference` does. A CPU tensor goes to that
     plain version; a CUDA tensor launches the kernel (counted in
-    ``fused_graph_conv_backward.launches``) or raises.
+    ``launch.sgcn_bwd``) or raises.
     """
     _check(x, weight, None, a)
     c_out = weight.shape[0] // K_PARTS
@@ -263,7 +261,6 @@ def fused_graph_conv_backward(x, weight, a, g):
         dx.data_ptr(), dw.data_ptr(), db.data_ptr(), ws.data_ptr(),
         frames, c_in, c_out, splits,
     )
-    fused_graph_conv_backward.launches += 1
     return dx, dw, db
 
 
@@ -312,7 +309,7 @@ def fused_graph_conv(x, weight, bias, a):
     Same arguments and result as :func:`graph_conv_reference`, with
     ``weight``, ``bias`` and ``a`` in float32 on ``x``'s device. CPU tensors
     go to the plain versions; CUDA tensors launch the forward kernel
-    (counted in ``fused_graph_conv.launches``) and, in the backward, the
+    (counted in ``launch.sgcn_fwd``) and, in the backward, the
     backward kernel, or raise.
     """
     _check(x, weight, bias, a)
@@ -325,12 +322,7 @@ def fused_graph_conv_stats(x, weight, bias, a):
     the output rounded to ``x.dtype``: ``(out, s, ss)``, differentiable in
     ``x``, ``weight`` and ``bias`` through all three. CPU tensors go to the
     plain versions; CUDA tensors launch the stats kernel (counted in
-    ``fused_graph_conv_stats.launches``) and, in the backward, the backward
+    ``launch.sgcn_fwd_stats``) and, in the backward, the backward
     kernel, or raise."""
     _check(x, weight, bias, a)
     return FusedGraphConvStats.apply(x, weight, bias, a)
-
-
-fused_graph_conv.launches = 0
-fused_graph_conv_stats.launches = 0
-fused_graph_conv_backward.launches = 0

@@ -219,7 +219,6 @@ def _forward(re, im, hop, cos, sin, eps, fftshift, center):
         twiddles(n_fft, re.device).data_ptr(), out.data_ptr(),
         n, t, n_fft, hop, f, frames, pad, int(fftshift), eps,
     )
-    stft_logmag.launches += 1
     return out
 
 
@@ -228,7 +227,7 @@ def stft_logmag_backward(re, im, hop: int, cos, sin, g, eps: float = 1e-6,
     """Backward of :func:`stft_logmag` through kernel #11: ``(dre, dim)``
     as :func:`stft_logmag_backward_reference` returns them. A CPU tensor
     goes to that plain version; a CUDA tensor launches the kernel (counted
-    in ``stft_logmag_backward.launches``) or raises. The result is the same
+    in ``launch.stft_bwd``) or raises. The result is the same
     bit for bit from launch to launch."""
     _check(re, im, cos, sin, hop)
     if re.device.type == "cpu":
@@ -253,7 +252,6 @@ def stft_logmag_backward(re, im, hop: int, cos, sin, g, eps: float = 1e-6,
         dre.data_ptr(), dim.data_ptr(), edges.data_ptr(),
         n, t, n_fft, hop, f, frames, pad, int(fftshift), eps,
     )
-    stft_logmag_backward.launches += 1
     return dre, dim
 
 
@@ -284,7 +282,7 @@ def stft_logmag(re, im, hop: int, cos, sin, *, eps: float = 1e-6,
     centered, differentiable in ``re`` and ``im``.
 
     CPU tensors go to the plain versions; CUDA tensors launch kernel #10
-    (counted in ``stft_logmag.launches``) and, in the backward, kernel #11,
+    (counted in ``launch.stft_fwd``) and, in the backward, kernel #11,
     or raise. The kernels take windowed Fourier bases
     (:func:`fourier_window`) of a power-of-two ``n_fft`` from 64 to 1024,
     ``F <= n_fft`` bins and, centered, ``T > n_fft / 2 + 1``.
@@ -292,7 +290,3 @@ def stft_logmag(re, im, hop: int, cos, sin, *, eps: float = 1e-6,
     _check(re, im, cos, sin, hop)
     return StftLogmag.apply(re, im, cos, sin, int(hop), float(eps),
                             bool(fftshift), bool(center))
-
-
-stft_logmag.launches = 0
-stft_logmag_backward.launches = 0

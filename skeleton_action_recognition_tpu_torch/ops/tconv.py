@@ -209,7 +209,6 @@ def _forward(s, scale, shift, weight, bias):
         bias.data_ptr(), u.data_ptr(), ws.data_ptr(), sums.data_ptr(),
         nm, t, c,
     )
-    affine_relu_tconv.launches += 1
     return u, sums[:c], sums[c:]
 
 
@@ -233,7 +232,7 @@ def affine_relu_tconv_backward(s, scale, shift, weight, gue):
     Arguments as :func:`affine_relu_tconv_backward_reference`, whose
     results it returns. A CPU tensor goes to that plain version; a CUDA
     tensor launches the kernels (counted in
-    ``affine_relu_tconv_backward.launches``) or raises.
+    ``launch.tconv_bwd``) or raises.
     """
     _check(s, scale, shift, weight)
     if tuple(gue.shape) != tuple(s.shape) or gue.device != s.device:
@@ -274,7 +273,6 @@ def _backward(s, scale, shift, weight, gue):
             ws_tile.data_ptr(), ws_w.data_ptr(), sums.data_ptr(),
             dwb.data_ptr(), nm, t, c, splits,
         )
-        affine_relu_tconv_backward.launches += 1
     dweight = dwb[:TAPS * c * c].view(c, c, TAPS, 1)
     return g_s, sums[:c], sums[c:], dweight, dwb[TAPS * c * c:]
 
@@ -307,12 +305,8 @@ def affine_relu_tconv(s, scale, shift, weight, bias):
     Same arguments and results as :func:`affine_relu_tconv_reference`, with
     ``s`` in f32 or bf16. CPU tensors go to the plain versions; CUDA
     tensors launch the forward kernel (counted in
-    ``affine_relu_tconv.launches``) and, in the backward, the backward
+    ``launch.tconv_fwd``) and, in the backward, the backward
     kernels, or raise.
     """
     _check(s, scale, shift, weight, bias)
     return AffineReluTconv.apply(s, scale, shift, weight, bias)
-
-
-affine_relu_tconv.launches = 0
-affine_relu_tconv_backward.launches = 0

@@ -20,6 +20,7 @@ from skeleton_action_recognition_tpu_torch.models import export
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     resolve_device,
 )
+from skeleton_action_recognition_tpu_torch.tracing import span
 from skeleton_action_recognition_tpu_torch.train import checkpoint as ckpt_lib
 
 
@@ -36,14 +37,19 @@ class Replicas:
         self.forwards = list(forwards)
         self.devices = [torch.device(d) for d in devices]
 
-    def __call__(self, x) -> torch.Tensor:
+    def split(self, x) -> list:
+        """The host array ``x``'s parts, each on its device."""
         x = torch.as_tensor(np.asarray(x, np.float32))
         size = -(-len(x) // len(self.forwards))
-        outs = [
-            fwd(part.to(device))
-            for fwd, device, part in zip(self.forwards, self.devices,
-                                         x.split(max(size, 1)))
-        ]
+        return [part.to(device) for device, part in
+                zip(self.devices, x.split(max(size, 1)))]
+
+    def forward(self, parts) -> list:
+        """Each part's output, on its device."""
+        return [fwd(part) for fwd, part in zip(self.forwards, parts)]
+
+    def __call__(self, x) -> torch.Tensor:
+        outs = self.forward(self.split(x))
         return torch.cat([out.cpu() for out in outs])
 
 
@@ -125,15 +131,26 @@ class Predictor:
         """Predict class probabilities for ``(n, 3, T, V, M)`` clips,
         ``n <= max_batch``. The JAX predictor pads every request to
         ``max_batch`` so that XLA compiles one shape; eager PyTorch runs
-        each size as it comes, so nothing is padded here."""
-        x = np.asarray(x, np.float32)
-        if len(x) > self.max_batch:
-            raise ValueError(
-                f"batch {len(x)} exceeds max_batch {self.max_batch}"
-            )
+        each size as it comes, so nothing is padded here.
+
+        Under a profiler the request's phases are spans
+        (:func:`..tracing.span`): ``serve.input`` (the host array to the
+        device), ``serve.forward`` and ``serve.output`` (the softmax, back
+        to a host array)."""
+        replicas = self._replicas
         with torch.inference_mode():
-            if self._replicas is None:
-                logits = self._forward(torch.from_numpy(x).to(self.device))
-            else:
-                logits = self._replicas(x)
-            return torch.softmax(logits.float(), dim=-1).cpu().numpy()
+            with span("serve.input"):
+                x = np.asarray(x, np.float32)
+                if len(x) > self.max_batch:
+                    raise ValueError(
+                        f"batch {len(x)} exceeds max_batch {self.max_batch}"
+                    )
+                x = (torch.from_numpy(x).to(self.device) if replicas is None
+                     else replicas.split(x))
+            with span("serve.forward"):
+                logits = (self._forward(x) if replicas is None
+                          else replicas.forward(x))
+            with span("serve.output"):
+                if replicas is not None:  # each replica's rows, in order
+                    logits = torch.cat([out.cpu() for out in logits])
+                return torch.softmax(logits.float(), dim=-1).cpu().numpy()

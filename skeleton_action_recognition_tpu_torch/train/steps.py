@@ -10,12 +10,19 @@ zeroes those gradients under a runtime flag, as in the JAX package. The
 spectrogram trainer's staged unfreeze of the radar parameters turns their
 ``requires_grad`` off instead, so that autograd records none of their
 backward, as ``stop_gradient`` lets XLA drop it.
+
+Under a profiler each train step's phases are spans
+(:func:`..tracing.span`): ``train.forward`` (the model and the loss),
+``train.backward`` (``zero_grad`` and ``loss.backward()``),
+``train.allreduce`` (with ``dp``), ``train.optimizer`` (the adjacency
+freeze and ``optimizer.step()``) and ``train.metrics``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from skeleton_action_recognition_tpu_torch.tracing import span
 from skeleton_action_recognition_tpu_torch.train.losses import total_loss
 
 
@@ -33,6 +40,17 @@ def mask_gradients_by_name(model, needle: str, enabled) -> None:
         g = p.grad if p.grad is not None else torch.zeros_like(p)
         on = torch.as_tensor(bool(enabled), device=g.device)
         p.grad = torch.where(on, g, torch.zeros_like(g))
+
+
+def _backward(model, optimizer, loss, dp) -> None:
+    """The gradients of ``loss`` (spans ``train.backward`` and, with a
+    ``dp``, ``train.allreduce``: their sum over the ranks)."""
+    with span("train.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    if dp is not None:
+        with span("train.allreduce"):
+            dp.all_reduce_gradients(model)
 
 
 def make_train_step(
@@ -53,27 +71,27 @@ def make_train_step(
 
     def step(x, y, train_adj):
         model.train()
-        logits = model(x)
-        loss = total_loss(logits, y, model, global_batch_size, l2_weight,
-                          world_size)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if dp is not None:
-            dp.all_reduce_gradients(model)
-        mask_gradients_by_name(model, freeze_name, train_adj)
-        optimizer.step()
-        with torch.no_grad():
-            labels = y.argmax(-1)
-            top1 = (logits.argmax(-1) == labels).sum()
-            top5_preds = logits.topk(min(5, logits.shape[-1]), dim=-1)[1]
-            top5 = (top5_preds == labels[:, None]).any(-1).sum()
-        metrics = {
-            "loss": loss.detach(),
-            "correct": top1,
-            "correct_top5": top5,
-            "count": torch.tensor(x.shape[0], dtype=torch.int32),
-        }
-        return metrics if dp is None else dp.sum_metrics(metrics)
+        with span("train.forward"):
+            logits = model(x)
+            loss = total_loss(logits, y, model, global_batch_size,
+                              l2_weight, world_size)
+        _backward(model, optimizer, loss, dp)
+        with span("train.optimizer"):
+            mask_gradients_by_name(model, freeze_name, train_adj)
+            optimizer.step()
+        with span("train.metrics"):
+            with torch.no_grad():
+                labels = y.argmax(-1)
+                top1 = (logits.argmax(-1) == labels).sum()
+                top5_preds = logits.topk(min(5, logits.shape[-1]), dim=-1)[1]
+                top5 = (top5_preds == labels[:, None]).any(-1).sum()
+            metrics = {
+                "loss": loss.detach(),
+                "correct": top1,
+                "correct_top5": top5,
+                "count": torch.tensor(x.shape[0], dtype=torch.int32),
+            }
+            return metrics if dp is None else dp.sum_metrics(metrics)
 
     return step
 
@@ -112,20 +130,21 @@ def make_radar_train_step(model, optimizer, global_batch_size: int,
                 p.requires_grad_(train_lambda)
             elif "radar_loc" in name:
                 p.requires_grad_(train_loc)
-        logits = model(x).float()
-        loss = -(torch.log_softmax(logits, -1) * y).sum() / global_batch_size
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if dp is not None:
-            dp.all_reduce_gradients(model)
-        optimizer.step()
-        with torch.no_grad():
-            correct = (logits.argmax(-1) == y.argmax(-1)).sum()
-        metrics = {
-            "loss": loss.detach(),
-            "correct": correct,
-            "count": torch.tensor(x.shape[0], dtype=torch.int32),
-        }
-        return metrics if dp is None else dp.sum_metrics(metrics)
+        with span("train.forward"):
+            logits = model(x).float()
+            loss = (-(torch.log_softmax(logits, -1) * y).sum()
+                    / global_batch_size)
+        _backward(model, optimizer, loss, dp)
+        with span("train.optimizer"):
+            optimizer.step()
+        with span("train.metrics"):
+            with torch.no_grad():
+                correct = (logits.argmax(-1) == y.argmax(-1)).sum()
+            metrics = {
+                "loss": loss.detach(),
+                "correct": correct,
+                "count": torch.tensor(x.shape[0], dtype=torch.int32),
+            }
+            return metrics if dp is None else dp.sum_metrics(metrics)
 
     return step

@@ -14,6 +14,7 @@ from skeleton_action_recognition_tpu.graphs import ntu_rgb_d as jax_graph
 from skeleton_action_recognition_tpu.ops import resample as jax_resample
 from skeleton_action_recognition_tpu.ops import virtual_radar as jax_vr
 from skeleton_action_recognition_tpu.ops.pallas import radar as jax_radar
+from skeleton_action_recognition_tpu_torch import tracing
 from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     RADAR_EDGES,
 )
@@ -184,14 +185,15 @@ def test_plain_backward_equals_autograd_where_c_is_positive():
 def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
     """On CPU tensors the autograd Function runs the plain versions; the
     launch counters count only kernel launches."""
-    fwd, bwd = radar.spline_radar.launches, radar.spline_radar_backward.launches
+    before = tracing.counters()
+    fwd, bwd = before["launch.radar_fwd"], before["launch.radar_bwd"]
     x = torch.from_numpy(skeletons(t=T_IN)).requires_grad_()
     re, im = radar.radar_return_spline(x, UP, torch.zeros(3),
                                        torch.tensor(5e-4), tile=128)
     (re.sum() + im.sum()).backward()
     assert x.grad is not None
-    assert radar.spline_radar.launches == fwd
-    assert radar.spline_radar_backward.launches == bwd
+    assert tracing.counters()["launch.radar_fwd"] == fwd
+    assert tracing.counters()["launch.radar_bwd"] == bwd
 
 
 def test_wrapper_checks_shapes_and_types():

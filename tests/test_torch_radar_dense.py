@@ -12,6 +12,7 @@ import torch
 from skeleton_action_recognition_tpu.graphs import ntu_rgb_d as jax_graph
 from skeleton_action_recognition_tpu.ops import virtual_radar as jax_vr
 from skeleton_action_recognition_tpu.ops.pallas import radar as jax_radar
+from skeleton_action_recognition_tpu_torch import tracing
 from skeleton_action_recognition_tpu_torch.ops import radar, resample
 from skeleton_action_recognition_tpu_torch.ops import virtual_radar
 from test_torch_radar import LOC, T_IN, TOL, UP, _compare, _jax_loss, _port
@@ -115,16 +116,16 @@ def test_gradients_finite_with_empty_bodies(operator, loc):
 def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(operator):
     """On CPU tensors the autograd Function runs the plain versions; the
     launch counters count only kernel launches."""
-    fwd = radar.dense_radar.launches
-    bwd = radar.dense_radar_backward.launches
+    fwd = tracing.counters()["launch.radar_dense_fwd"]
+    bwd = tracing.counters()["launch.radar_dense_bwd"]
     x = torch.from_numpy(skeletons(t=T_IN)).requires_grad_()
     re, im = radar.radar_return_fused(x, torch.from_numpy(operator),
                                       torch.zeros(3), torch.tensor(5e-4))
     (re.sum() + im.sum()).backward()
     assert re.shape == im.shape == (2, T_OUT)
     assert x.grad is not None
-    assert radar.dense_radar.launches == fwd
-    assert radar.dense_radar_backward.launches == bwd
+    assert tracing.counters()["launch.radar_dense_fwd"] == fwd
+    assert tracing.counters()["launch.radar_dense_bwd"] == bwd
 
 
 def test_wrappers_accept_the_kernel_inputs():

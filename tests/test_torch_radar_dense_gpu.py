@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from skeleton_action_recognition_tpu_torch import tracing
 from skeleton_action_recognition_tpu_torch.ops import radar, resample
 
 # kernel vs plain, max |diff| / max |plain|. At lambda = 5e-4 the phase is
@@ -132,10 +133,10 @@ def operator_inputs(w, lam, device, n=2, seed=0):
 @pytest.mark.parametrize("t_in,up,tile", SHAPES)
 def test_forward_kernel_matches_plain_version(cuda, t_in, up, tile, lam):
     args = kernel_inputs(2, t_in, up, lam, cuda, tile)
-    before = radar.dense_radar.launches
+    before = tracing.counters()["launch.radar_dense_fwd"]
     re, im = radar.dense_radar(*args)
     torch.cuda.synchronize()
-    assert radar.dense_radar.launches == before + 1
+    assert tracing.counters()["launch.radar_dense_fwd"] == before + 1
     want = radar.dense_radar_reference(*args)
     for got, ref in zip((re, im), want):
         assert got.shape == ref.shape == (2, t_in * up)
@@ -149,10 +150,10 @@ def test_backward_kernel_matches_plain_version(cuda, t_in, up, tile, lam):
     args = kernel_inputs(2, t_in, up, lam, cuda, tile)
     g = torch.randn(2, 2, t_in * up, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(1))
-    before = radar.dense_radar_backward.launches
+    before = tracing.counters()["launch.radar_dense_bwd"]
     got = radar.dense_radar_backward(*args[:6], g[0], g[1], args[6])
     torch.cuda.synchronize()
-    assert radar.dense_radar_backward.launches == before + 1
+    assert tracing.counters()["launch.radar_dense_bwd"] == before + 1
     want = radar.dense_radar_backward_reference(*args[:6], g[0], g[1],
                                                 args[6])
     for name, p, q in zip(("dsrc", "ddst", "dc", "dloc", "dlam"), got, want):
@@ -196,14 +197,14 @@ def test_autograd_function_launches_both_kernels(cuda):
     x = clips(2, 30, cuda).requires_grad_()
     w = torch.from_numpy(resample.pad_frames_operator(30, 20)).to(cuda)
     lam = torch.tensor(10.0, device=cuda, requires_grad=True)
-    fwd = radar.dense_radar.launches
-    bwd = radar.dense_radar_backward.launches
+    fwd = tracing.counters()["launch.radar_dense_fwd"]
+    bwd = tracing.counters()["launch.radar_dense_bwd"]
     re, im = radar.radar_return_fused(x, w, torch.zeros(3, device=cuda), lam,
                                       tile=128)
     (re.sum() + im.sum()).backward()
     torch.cuda.synchronize()
-    assert radar.dense_radar.launches == fwd + 1
-    assert radar.dense_radar_backward.launches == bwd + 1
+    assert tracing.counters()["launch.radar_dense_fwd"] == fwd + 1
+    assert tracing.counters()["launch.radar_dense_bwd"] == bwd + 1
     assert torch.isfinite(x.grad).all() and torch.isfinite(lam.grad)
 
 
@@ -240,15 +241,15 @@ def test_kernels_match_plain_version_on_any_band(cuda, name, lam):
         assert (tiles[:, 0] == 0).all() and (width == w_np.shape[1]).all()
     else:
         assert (tiles[:, 0] == tiles[:, 1]).any() and (width > 64).any()
-    fwd = radar.dense_radar.launches
-    bwd = radar.dense_radar_backward.launches
+    fwd = tracing.counters()["launch.radar_dense_fwd"]
+    bwd = tracing.counters()["launch.radar_dense_bwd"]
     out = radar.dense_radar(*args)
     g = torch.randn(2, 2, t_out, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(3))
     got = radar.dense_radar_backward(*args[:6], g[0], g[1], t_out)
     torch.cuda.synchronize()
-    assert radar.dense_radar.launches == fwd + 1
-    assert radar.dense_radar_backward.launches == bwd + 1
+    assert tracing.counters()["launch.radar_dense_fwd"] == fwd + 1
+    assert tracing.counters()["launch.radar_dense_bwd"] == bwd + 1
     for p, q in zip(out, radar.dense_radar_reference(*args)):
         assert _rel(p, q) <= TOL[lam][0]
     want = radar.dense_radar_backward_reference(*args[:6], g[0], g[1], t_out)

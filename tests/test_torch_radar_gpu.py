@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from skeleton_action_recognition_tpu_torch import tracing
 from skeleton_action_recognition_tpu_torch.ops import radar
 
 # kernel vs plain, max |diff| / max |plain|. At lambda = 5e-4 the phase is
@@ -53,10 +54,10 @@ def _rel(p, q):
                                           (300, 250, 512)])
 def test_forward_kernel_matches_plain_version(cuda, t_in, up, tile, lam):
     args = kernel_inputs(2, t_in, up, lam, cuda, tile)
-    before = radar.spline_radar.launches
+    before = tracing.counters()["launch.radar_fwd"]
     re, im = radar.spline_radar(*args)
     torch.cuda.synchronize()
-    assert radar.spline_radar.launches == before + 1
+    assert tracing.counters()["launch.radar_fwd"] == before + 1
     want = radar.spline_radar_reference(*args)
     for got, ref in zip((re, im), want):
         assert got.shape == ref.shape == (2, t_in * up)
@@ -71,10 +72,10 @@ def test_backward_kernel_matches_plain_version(cuda, t_in, up, tile, lam):
     args = kernel_inputs(2, t_in, up, lam, cuda, tile)
     g = torch.randn(2, 2, t_in * up, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(1))
-    before = radar.spline_radar_backward.launches
+    before = tracing.counters()["launch.radar_bwd"]
     got = radar.spline_radar_backward(*args[:6], g[0], g[1], args[6])
     torch.cuda.synchronize()
-    assert radar.spline_radar_backward.launches == before + 1
+    assert tracing.counters()["launch.radar_bwd"] == before + 1
     want = radar.spline_radar_backward_reference(*args[:6], g[0], g[1],
                                                  args[6])
     for name, p, q in zip(("dsrc", "ddst", "dc", "dloc", "dlam"), got, want):
@@ -106,13 +107,13 @@ def test_loc_lambda_instance_matches_plain_version(cuda, t_in, up, tile,
     args = kernel_inputs(2, t_in, up, lam, cuda, tile)
     g = torch.randn(2, 2, t_in * up, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(1))
-    full = radar.spline_radar_backward.launches
-    part = radar.spline_radar_loc_lam_backward.launches
+    full = tracing.counters()["launch.radar_bwd"]
+    part = tracing.counters()["launch.radar_bwd_loc_lam"]
     got = radar.spline_radar_backward(*args[:6], g[0], g[1], args[6],
                                       coef_grads=False)
     torch.cuda.synchronize()
-    assert radar.spline_radar_backward.launches == full
-    assert radar.spline_radar_loc_lam_backward.launches == part + 1
+    assert tracing.counters()["launch.radar_bwd"] == full
+    assert tracing.counters()["launch.radar_bwd_loc_lam"] == part + 1
     assert got[:3] == (None, None, None)
     want = radar.spline_radar_backward_reference(*args[:6], g[0], g[1],
                                                  args[6], coef_grads=False)
@@ -144,13 +145,13 @@ def test_spline_radar_takes_the_loc_lambda_instance(cuda):
     x = torch.randn(2, 3, 30, 25, 2, device=cuda).mul_(0.3)
     loc = torch.tensor([0.1, -0.2, 0.3], device=cuda, requires_grad=True)
     lam = torch.tensor(5e-4, device=cuda, requires_grad=True)
-    full = radar.spline_radar_backward.launches
-    part = radar.spline_radar_loc_lam_backward.launches
+    full = tracing.counters()["launch.radar_bwd"]
+    part = tracing.counters()["launch.radar_bwd_loc_lam"]
     re, im = radar.radar_return_spline(x, 20, loc, lam, tile=128)
     (re * re + im * im).sum().backward()
     torch.cuda.synchronize()
-    assert radar.spline_radar_backward.launches == full
-    assert radar.spline_radar_loc_lam_backward.launches == part + 1
+    assert tracing.counters()["launch.radar_bwd"] == full
+    assert tracing.counters()["launch.radar_bwd_loc_lam"] == part + 1
     assert torch.isfinite(loc.grad).all() and torch.isfinite(lam.grad)
 
 
@@ -162,18 +163,18 @@ def test_kernels_refuse_other_monomials(cuda):
     e, *rest, t_out = kernel_inputs(2, 30, 20, 5e-4, cuda, 128)
     e = e.flip(2).contiguous()
     g = torch.zeros(2, t_out, device=cuda)
-    counts = (radar.spline_radar.launches,
-              radar.spline_radar_backward.launches,
-              radar.spline_radar_loc_lam_backward.launches)
+    counts = (tracing.counters()["launch.radar_fwd"],
+              tracing.counters()["launch.radar_bwd"],
+              tracing.counters()["launch.radar_bwd_loc_lam"])
     for call in (lambda: radar.spline_radar(e, *rest, t_out),
                  lambda: radar.spline_radar_backward(e, *rest, g, g, t_out),
                  lambda: radar.spline_radar_loc_lam_backward(e, *rest, g, g,
                                                              t_out)):
         with pytest.raises(ValueError, match="spline_tile_plan"):
             call()
-    assert counts == (radar.spline_radar.launches,
-                      radar.spline_radar_backward.launches,
-                      radar.spline_radar_loc_lam_backward.launches)
+    assert counts == (tracing.counters()["launch.radar_fwd"],
+                      tracing.counters()["launch.radar_bwd"],
+                      tracing.counters()["launch.radar_bwd_loc_lam"])
 
 
 @pytest.mark.gpu
@@ -195,14 +196,14 @@ def test_empty_bodies_give_finite_gradients(cuda):
 def test_autograd_function_launches_both_kernels(cuda):
     x = torch.randn(2, 3, 30, 25, 2, device=cuda).mul_(0.3).requires_grad_()
     lam = torch.tensor(10.0, device=cuda, requires_grad=True)
-    fwd = radar.spline_radar.launches
-    bwd = radar.spline_radar_backward.launches
+    fwd = tracing.counters()["launch.radar_fwd"]
+    bwd = tracing.counters()["launch.radar_bwd"]
     re, im = radar.radar_return_spline(x, 20, torch.zeros(3, device=cuda),
                                        lam, tile=128)
     (re.sum() + im.sum()).backward()
     torch.cuda.synchronize()
-    assert radar.spline_radar.launches == fwd + 1
-    assert radar.spline_radar_backward.launches == bwd + 1
+    assert tracing.counters()["launch.radar_fwd"] == fwd + 1
+    assert tracing.counters()["launch.radar_bwd"] == bwd + 1
     assert torch.isfinite(x.grad).all() and torch.isfinite(lam.grad)
 
 

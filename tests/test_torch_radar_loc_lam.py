@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from skeleton_action_recognition_tpu.ops.pallas import radar as jax_radar
+from skeleton_action_recognition_tpu_torch import tracing
 from skeleton_action_recognition_tpu_torch.ops import radar
 from test_torch_radar import LOC, T_IN, TOL, UP, _jax_loss
 from test_torch_spectrogram import skeletons
@@ -98,10 +99,10 @@ def test_loc_lambda_function_returns_the_loc_lambda_part():
     e, ts, td, c, t_out = radar.spline_inputs(x, UP, tile=256)
     args = (e, ts, td, c, torch.tensor(LOC), torch.tensor(np.float32(5e-4)))
     g = torch.randn(2, 2, t_out, generator=torch.Generator().manual_seed(5))
-    launches = radar.spline_radar_loc_lam_backward.launches
+    launches = tracing.counters()["launch.radar_bwd_loc_lam"]
     got = radar.spline_radar_loc_lam_backward(*args, g[0], g[1], t_out)
     want = radar.spline_radar_backward_reference(*args, g[0], g[1], t_out,
                                                  coef_grads=False)
     assert len(got) == 2
     assert torch.equal(got[0], want[3]) and torch.equal(got[1], want[4])
-    assert radar.spline_radar_loc_lam_backward.launches == launches
+    assert tracing.counters()["launch.radar_bwd_loc_lam"] == launches

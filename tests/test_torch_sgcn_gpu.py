@@ -12,6 +12,7 @@ machine with a card and no jax it runs as
 import pytest
 import torch
 
+from skeleton_action_recognition_tpu_torch import tracing
 from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     spatial_adjacency,
 )
@@ -53,10 +54,10 @@ def _inputs(t, c_in, c_out, dtype, device, nm=4):
 @pytest.mark.parametrize("t,c_in,c_out", MODEL_SHAPES)
 def test_kernel_matches_plain_version(cuda, t, c_in, c_out, dtype):
     x, w, b, a = _inputs(t, c_in, c_out, dtype, cuda)
-    before = sgcn.fused_graph_conv.launches
+    before = tracing.counters()["launch.sgcn_fwd"]
     got = sgcn.fused_graph_conv(x, w, b, a)
     torch.cuda.synchronize()
-    assert sgcn.fused_graph_conv.launches == before + 1
+    assert tracing.counters()["launch.sgcn_fwd"] == before + 1
     want = sgcn.graph_conv_reference(x, w, b, a)
     assert got.dtype == dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
@@ -110,10 +111,10 @@ def _assert_close(got, want, tols):
 @pytest.mark.parametrize("t,c_in,c_out", MODEL_SHAPES)
 def test_backward_kernel_matches_plain_version(cuda, t, c_in, c_out, dtype):
     x, w, a, g = _bwd_inputs(t, c_in, c_out, dtype, cuda)
-    before = sgcn.fused_graph_conv_backward.launches
+    before = tracing.counters()["launch.sgcn_bwd"]
     got = sgcn.fused_graph_conv_backward(x, w, a, g)
     torch.cuda.synchronize()
-    assert sgcn.fused_graph_conv_backward.launches == before + 1
+    assert tracing.counters()["launch.sgcn_bwd"] == before + 1
     want = sgcn.graph_conv_backward_reference(x, w, a, g)
     _assert_close(got, want, BWD_REL_TOL[dtype])
 
@@ -157,14 +158,14 @@ def test_autograd_function_launches_both_kernels(cuda):
     x.requires_grad_()
     w.requires_grad_()
     b.requires_grad_()
-    fwd = sgcn.fused_graph_conv.launches
-    bwd = sgcn.fused_graph_conv_backward.launches
+    fwd = tracing.counters()["launch.sgcn_fwd"]
+    bwd = tracing.counters()["launch.sgcn_bwd"]
     out = sgcn.fused_graph_conv(x, w, b, a)
     g = torch.randn_like(out)
     out.backward(g)
     torch.cuda.synchronize()
-    assert sgcn.fused_graph_conv.launches == fwd + 1
-    assert sgcn.fused_graph_conv_backward.launches == bwd + 1
+    assert tracing.counters()["launch.sgcn_fwd"] == fwd + 1
+    assert tracing.counters()["launch.sgcn_bwd"] == bwd + 1
     want = sgcn.graph_conv_backward_reference(x.detach(), w.detach(), a, g)
     _assert_close((x.grad, w.grad, b.grad), want,
                   BWD_REL_TOL[torch.float32])
@@ -204,10 +205,10 @@ def _assert_stats_close(got, want, dtype):
 @pytest.mark.parametrize("t,c_in,c_out", MODEL_SHAPES + [(7, 20, 40)])
 def test_stats_kernel_matches_plain_version(cuda, t, c_in, c_out, dtype):
     x, w, b, a = _inputs(t, c_in, c_out, dtype, cuda, nm=3)
-    before = sgcn.fused_graph_conv_stats.launches
+    before = tracing.counters()["launch.sgcn_fwd_stats"]
     got = sgcn.fused_graph_conv_stats(x, w, b, a)
     torch.cuda.synchronize()
-    assert sgcn.fused_graph_conv_stats.launches == before + 1
+    assert tracing.counters()["launch.sgcn_fwd_stats"] == before + 1
     _assert_stats_close(got, sgcn.graph_conv_stats_reference(x, w, b, a),
                         dtype)
 
@@ -239,14 +240,14 @@ def test_stats_function_launches_its_kernels_only(cuda, monkeypatch):
     monkeypatch.setattr(sgcn, "graph_conv_stats_reference", refuse)
     monkeypatch.setattr(sgcn, "graph_conv_backward_reference", refuse)
     args = [t.clone().requires_grad_() for t in (x, w, b)]
-    fwd = sgcn.fused_graph_conv_stats.launches
-    bwd = sgcn.fused_graph_conv_backward.launches
+    fwd = tracing.counters()["launch.sgcn_fwd_stats"]
+    bwd = tracing.counters()["launch.sgcn_bwd"]
     out, s, ss = sgcn.fused_graph_conv_stats(*args, a)
     g = torch.randn_like(out)
     ((out * g).sum() + 0.1 * s.sum() + 0.01 * ss.sum()).backward()
     torch.cuda.synchronize()
-    assert sgcn.fused_graph_conv_stats.launches == fwd + 1
-    assert sgcn.fused_graph_conv_backward.launches == bwd + 1
+    assert tracing.counters()["launch.sgcn_fwd_stats"] == fwd + 1
+    assert tracing.counters()["launch.sgcn_bwd"] == bwd + 1
     gg = g + 0.1 + 0.02 * out.detach()
     want = plain_bwd(x, w, a, gg)
     _assert_close([t.grad for t in args], want, BWD_REL_TOL[torch.float32])

@@ -19,7 +19,7 @@ from skeleton_action_recognition_tpu.models.gcn import (
 from skeleton_action_recognition_tpu.ops.pallas.sgcn import (
     make_fused_graph_conv,
 )
-from skeleton_action_recognition_tpu_torch import interop
+from skeleton_action_recognition_tpu_torch import interop, tracing
 from skeleton_action_recognition_tpu_torch.models.gcn import GraphConvTD
 from skeleton_action_recognition_tpu_torch.ops import sgcn
 
@@ -147,12 +147,12 @@ def test_fused_layer_refuses_a_trainable_adjacency():
 
 def test_cpu_backward_takes_the_plain_version_without_a_launch():
     x = torch.zeros(2, 4, 25, 8)
-    before = sgcn.fused_graph_conv_backward.launches
+    before = tracing.counters()["launch.sgcn_bwd"]
     dx, dw, db = sgcn.fused_graph_conv_backward(
         x, torch.zeros(48, 8), torch.from_numpy(A), torch.ones(2, 4, 25, 16)
     )
     assert dx.shape == x.shape and dw.shape == (48, 8) and db.shape == (48,)
-    assert sgcn.fused_graph_conv_backward.launches == before
+    assert tracing.counters()["launch.sgcn_bwd"] == before
 
 
 @pytest.mark.parametrize(

@@ -12,6 +12,7 @@ import torch
 
 from skeleton_action_recognition_tpu.ops import stft as jax_stft
 from skeleton_action_recognition_tpu.ops.pallas import stft as jax_fused
+from skeleton_action_recognition_tpu_torch import tracing
 from skeleton_action_recognition_tpu_torch.ops import stft, stft_logmag
 import torch_parity_helpers  # noqa: F401  (caps torch's threads)
 
@@ -225,10 +226,10 @@ def test_twiddles_are_rounded_once_from_float64():
 
 
 def test_cpu_wrapper_counts_no_launch():
-    fwd = stft_logmag.stft_logmag.launches
-    bwd = stft_logmag.stft_logmag_backward.launches
+    fwd = tracing.counters()["launch.stft_fwd"]
+    bwd = tracing.counters()["launch.stft_bwd"]
     re, im = (torch.tensor(a, requires_grad=True) for a in _signal(1, 600))
     stft_logmag.stft_logmag(re, im, HOP, *_bases()).sum().backward()
     assert re.grad is not None
-    assert stft_logmag.stft_logmag.launches == fwd
-    assert stft_logmag.stft_logmag_backward.launches == bwd
+    assert tracing.counters()["launch.stft_fwd"] == fwd
+    assert tracing.counters()["launch.stft_bwd"] == bwd

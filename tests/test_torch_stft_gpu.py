@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from skeleton_action_recognition_tpu_torch import tracing
 from skeleton_action_recognition_tpu_torch.ops import stft, stft_logmag
 
 N_FFT, HOP = 256, 16
@@ -58,10 +59,10 @@ def _f64(re, im, cos, g=None, hop=HOP, **kw):
 @pytest.mark.parametrize("t", [130, 600, 3000, 9000, 75000])
 def test_forward_kernel_matches_plain_version(cuda, t):
     re, im, cos, sin = _inputs(2, t, cuda)
-    before = stft_logmag.stft_logmag.launches
+    before = tracing.counters()["launch.stft_fwd"]
     got = stft_logmag.stft_logmag(re, im, HOP, cos, sin)
     torch.cuda.synchronize()
-    assert stft_logmag.stft_logmag.launches == before + 1
+    assert tracing.counters()["launch.stft_fwd"] == before + 1
     want = _f64(re, im, cos)
     assert got.shape == want.shape == (2, N_FFT, t // HOP + 1)
     assert (got - want).abs().max().item() <= ATOL
@@ -82,10 +83,10 @@ def test_backward_kernel_matches_plain_version(cuda, t):
     re, im, cos, sin = _inputs(2, t, cuda)
     g = torch.randn(2, N_FFT, t // HOP + 1, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(1))
-    before = stft_logmag.stft_logmag_backward.launches
+    before = tracing.counters()["launch.stft_bwd"]
     got = stft_logmag.stft_logmag_backward(re, im, HOP, cos, sin, g)
     torch.cuda.synchronize()
-    assert stft_logmag.stft_logmag_backward.launches == before + 1
+    assert tracing.counters()["launch.stft_bwd"] == before + 1
     want = _f64(re, im, cos, g)
     for p, q in zip(got, want):
         assert p.shape == q.shape
@@ -138,7 +139,7 @@ def test_kernel_path_raises_on_bases_it_does_not_take(cuda):
     re, im, cos, sin = _inputs(1, 3000, cuda)
     bent = cos.clone()
     bent[5, 7] += 1e-3
-    before = stft_logmag.stft_logmag.launches
+    before = tracing.counters()["launch.stft_fwd"]
     with pytest.raises(ValueError, match="Fourier bases"):
         stft_logmag.stft_logmag(re, im, HOP, bent, sin)
     g = torch.zeros(1, N_FFT, 3000 // HOP + 1, device=cuda)
@@ -147,7 +148,7 @@ def test_kernel_path_raises_on_bases_it_does_not_take(cuda):
     c192, s192 = _inputs(1, 3000, cuda, n_fft=192)[2:]
     with pytest.raises(ValueError, match="power-of-two"):
         stft_logmag.stft_logmag(re, im, HOP, c192, s192)
-    assert stft_logmag.stft_logmag.launches == before
+    assert tracing.counters()["launch.stft_fwd"] == before
 
 
 @pytest.mark.gpu
@@ -197,12 +198,12 @@ def test_kernel_path_raises_on_a_short_signal(cuda):
 def test_autograd_function_launches_both_kernels(cuda):
     re, im, cos, sin = _inputs(2, 600, cuda)
     re.requires_grad_(), im.requires_grad_()
-    fwd = stft_logmag.stft_logmag.launches
-    bwd = stft_logmag.stft_logmag_backward.launches
+    fwd = tracing.counters()["launch.stft_fwd"]
+    bwd = tracing.counters()["launch.stft_bwd"]
     stft_logmag.stft_logmag(re, im, HOP, cos, sin).sum().backward()
     torch.cuda.synchronize()
-    assert stft_logmag.stft_logmag.launches == fwd + 1
-    assert stft_logmag.stft_logmag_backward.launches == bwd + 1
+    assert tracing.counters()["launch.stft_fwd"] == fwd + 1
+    assert tracing.counters()["launch.stft_bwd"] == bwd + 1
     assert torch.isfinite(re.grad).all() and torch.isfinite(im.grad).all()
 
 

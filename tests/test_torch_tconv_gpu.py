@@ -12,6 +12,7 @@ machine with a card and no jax it runs as
 import pytest
 import torch
 
+from skeleton_action_recognition_tpu_torch import tracing
 from skeleton_action_recognition_tpu_torch.ops import tconv
 
 # (T, C) of the stride-1 blocks' temporal chains
@@ -91,13 +92,13 @@ def test_kernels_match_plain_versions(cuda, t, c, dtype):
     """At the model's shapes, and at a T that is no multiple of the tile
     and a C that is no multiple of the channel tiles."""
     s, scale, shift, w, b, gue = _inputs(t, c, dtype, cuda)
-    fwd = tconv.affine_relu_tconv.launches
-    bwd = tconv.affine_relu_tconv_backward.launches
+    fwd = tracing.counters()["launch.tconv_fwd"]
+    bwd = tracing.counters()["launch.tconv_bwd"]
     got = tconv.affine_relu_tconv(s, scale, shift, w, b)
     got_bwd = tconv.affine_relu_tconv_backward(s, scale, shift, w, gue)
     torch.cuda.synchronize()
-    assert tconv.affine_relu_tconv.launches == fwd + 1
-    assert tconv.affine_relu_tconv_backward.launches == bwd + 1
+    assert tracing.counters()["launch.tconv_fwd"] == fwd + 1
+    assert tracing.counters()["launch.tconv_bwd"] == bwd + 1
     _check_forward(got, tconv.affine_relu_tconv_reference(
         s, scale, shift, w, b), dtype)
     _check_backward(got_bwd, tconv.affine_relu_tconv_backward_reference(
@@ -119,13 +120,13 @@ def test_bf16_kernels_at_the_tile_edges(cuda, t, c, nm):
     dtype = torch.bfloat16
     s, scale, shift, w, b, gue = _inputs(t, c, dtype, cuda, nm=nm)
     fwd_args, bwd_args = (s, scale, shift, w, b), (s, scale, shift, w, gue)
-    fwd = tconv.affine_relu_tconv.launches
-    bwd = tconv.affine_relu_tconv_backward.launches
+    fwd = tracing.counters()["launch.tconv_fwd"]
+    bwd = tracing.counters()["launch.tconv_bwd"]
     got = tconv.affine_relu_tconv(*fwd_args)
     got_bwd = tconv.affine_relu_tconv_backward(*bwd_args)
     torch.cuda.synchronize()
-    assert tconv.affine_relu_tconv.launches == fwd + 1
-    assert tconv.affine_relu_tconv_backward.launches == bwd + 1
+    assert tracing.counters()["launch.tconv_fwd"] == fwd + 1
+    assert tracing.counters()["launch.tconv_bwd"] == bwd + 1
     _check_forward(got, tconv.affine_relu_tconv_reference(*fwd_args), dtype)
     _check_backward(got_bwd,
                     tconv.affine_relu_tconv_backward_reference(*bwd_args),
@@ -153,13 +154,13 @@ def test_f32_kernels_at_the_tile_edges(cuda, t, c, nm):
     dtype = torch.float32
     s, scale, shift, w, b, gue = _inputs(t, c, dtype, cuda, nm=nm)
     fwd_args, bwd_args = (s, scale, shift, w, b), (s, scale, shift, w, gue)
-    fwd = tconv.affine_relu_tconv.launches
-    bwd = tconv.affine_relu_tconv_backward.launches
+    fwd = tracing.counters()["launch.tconv_fwd"]
+    bwd = tracing.counters()["launch.tconv_bwd"]
     got = tconv.affine_relu_tconv(*fwd_args)
     got_bwd = tconv.affine_relu_tconv_backward(*bwd_args)
     torch.cuda.synchronize()
-    assert tconv.affine_relu_tconv.launches == fwd + 1
-    assert tconv.affine_relu_tconv_backward.launches == bwd + 1
+    assert tracing.counters()["launch.tconv_fwd"] == fwd + 1
+    assert tracing.counters()["launch.tconv_bwd"] == bwd + 1
     _check_forward(got, tconv.affine_relu_tconv_reference(*fwd_args), dtype)
     _check_backward(got_bwd,
                     tconv.affine_relu_tconv_backward_reference(*bwd_args),
