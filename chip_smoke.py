@@ -10,8 +10,9 @@ so the exit code is not 0.
 
 1. ``env``: the card, its power limit, torch and CUDA versions. Without a
    CUDA device the script stops here (it never falls back to the CPU).
-2. ``build``: compiles the ten ``csrc/*.cu`` sources (sgcn, radar,
-   radar_dense, stft and tconv, forward and backward) for ``sm_90a`` from
+2. ``build``: compiles the eleven ``csrc/*.cu`` sources (sgcn, radar,
+   radar_dense, stft and tconv, forward and backward, and the fused
+   blocks' tail, ``block_tail.cu``) for ``sm_90a`` from
    the checkout, one ``nvcc`` each, at once (seconds, and the compiler's
    register and shared-memory reports); ``sgcn_build``: the registers,
    spills and shared memory of the six f32 spatial-conv kernels
@@ -37,6 +38,13 @@ so the exit code is not 0.
    plain version and cuDNN's conv alone; first (``tconv_build``) the
    registers, spills and shared memory of the f32 and bf16 kernels (the
    f32 ones must not spill).
+   ``block_tail_kernel``: the fused blocks' tail kernels (``block_tail_fwd``,
+   ``block_tail_bwd``, ``tconv_gue``) against their plain versions at the
+   three stride-1 shapes, NM=256, ``u`` in f32 and bf16, the residual
+   absent, f32 and bf16: out, g_u, g_res and gue bit for bit, the channel
+   sums within ``TAIL_SUM_TOL``, two launches of each bit for bit,
+   CUDA-event times of kernel and plain version beside the bound and the
+   bytes an element; first (``block_tail_build``) their ptxas reports.
 5. ``slice``: the full-width NTU-60 ST-GCN (T=300) from seeded random
    weights and BatchNorm statistics, behind ``Predictor(max_batch=64)``.
    Requests of 1, 7 and 64 clips: every row finite and summing to 1, ten
@@ -257,7 +265,10 @@ beside as ``bf16_ms``, ``bf16_plain_ms``, ``bf16_library_ms``,
 ``bf16_bound_ms``, ``bf16_bound_by`` and ``bf16_max_abs_err``;
 ``tconv_*``: f32 time of the eight stride-1 blocks' calls at NM=256, with
 cuDNN's conv alone as ``library_ms``, and the bf16 numbers beside as
-``bf16_*`` (with ``bf16_library_ms``); ``radar_*``/``stft_*``: one call at
+``bf16_*`` (with ``bf16_library_ms``); ``block_tail_fwd``,
+``block_tail_bwd``, ``tconv_gue``: f32 time of the eight stride-1 blocks'
+calls at NM=256 with each block's residual (``TAIL_BLOCKS``), and the bf16
+numbers beside as ``bf16_*``; ``radar_*``/``stft_*``: one call at
 16 clips, lambda = 5e-4, with the operator products alone as the dense
 radar kernels' ``library_ms`` and ``torch.stft`` and its backward as the
 STFT kernels' (their ``dft_bound_ms`` beside); ``radar_bwd`` the numbers
@@ -382,7 +393,7 @@ PROB_ATOL = {"f32": 1e-4, "bf16": 5e-2}
 REQUESTS = (1, 7, 64)
 SOURCES = ("sgcn_fwd.cu", "sgcn_bwd.cu", "radar_fwd.cu", "radar_bwd.cu",
            "stft_fwd.cu", "stft_bwd.cu", "tconv_fwd.cu", "tconv_bwd.cu",
-           "radar_dense_fwd.cu", "radar_dense_bwd.cu")
+           "radar_dense_fwd.cu", "radar_dense_bwd.cu", "block_tail.cu")
 SGCN_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_fwd.cu"
 SGCN_REPLACES = "skeleton_action_recognition_tpu/ops/pallas/sgcn.py:90"
 SGCN_BWD_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_bwd.cu"
@@ -412,11 +423,13 @@ STEP_LAUNCHES = {
     "fused": {"sgcn_fwd": 10, "sgcn_bwd": 10},
     "sgcn_stats": {"sgcn_fwd_stats": 10, "sgcn_bwd": 10},
     "fused_tconv": {"sgcn_fwd": 10, "sgcn_bwd": 10, "tconv_fwd": 8,
-                    "tconv_bwd": 8},
+                    "tconv_bwd": 8, "block_tail_fwd": 8,
+                    "block_tail_bwd": 8, "tconv_gue": 8},
     "fused_min128": {"sgcn_fwd": 6, "sgcn_bwd": 6},
 }
 TRAIN_KERNELS = ("sgcn_fwd", "sgcn_fwd_stats", "sgcn_bwd", "tconv_fwd",
-                 "tconv_bwd")
+                 "tconv_bwd", "block_tail_fwd", "block_tail_bwd",
+                 "tconv_gue")
 # models served in eval beside the fused-only one: the training options
 EVAL_OPTIONS = {
     "sgcn_stats+fused_tconv": dict(sgcn_stats=True, fused_tconv=True),
@@ -542,6 +555,29 @@ TCONV_SHAPES = [((300, 64), 4), ((150, 128), 2), ((75, 256), 2)]
 # rounded operands in other orders.
 TCONV_OUT_TOL = {"f32": 1e-5, "bf16": 2e-2}
 TCONV_GRAD_TOL = 1e-4
+# the fused blocks' tail (csrc/block_tail.cu) at the stride-1 shapes: how
+# many of a step's eight blocks take each residual, by the model's dtype.
+# Block 0 has none; 5 and 8 take the stride-2 blocks' output (bf16 in the
+# bf16 model), the others the previous fused block's f32 output. Every
+# combination is checked; the kernels line sums the step's.
+TAIL_RESIDUALS = {"none": None, "f32": torch.float32, "bf16": torch.bfloat16}
+TAIL_BLOCKS = {
+    "f32": {(300, 64): {"none": 1, "f32": 3}, (150, 128): {"f32": 2},
+            (75, 256): {"f32": 2}},
+    "bf16": {(300, 64): {"none": 1, "f32": 3},
+             (150, 128): {"bf16": 1, "f32": 1},
+             (75, 256): {"bf16": 1, "f32": 1}},
+}
+# g_scale2, g_shift2: f32 sums over 1.9 M rows in another order than the
+# plain version's, max |diff| / max |plain|; every other output bit for bit
+TAIL_SUM_TOL = 1e-4
+# f32 operations an element: the forward's multiply, two adds and max; the
+# backward's mask, two multiplies and the two sums' adds; the fold's two
+# adds and two multiplies
+TAIL_OPS = {"block_tail_fwd": 4, "block_tail_bwd": 5, "tconv_gue": 4}
+TAIL_KERNELS = tuple(TAIL_OPS)
+TAIL_OUTPUTS = ("out", "g_u", "g_scale2", "g_shift2", "g_res", "gue")
+TAIL_SUMS = ("g_scale2", "g_shift2")
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): FLOP/s of
 # f32 on the CUDA cores (TF32 off) and of bf16 on the tensor cores, and the
 # device memory's bytes/s. A kernel's bound is the larger of its operations
@@ -609,7 +645,18 @@ KERNEL_REPLACES = {
 }
 KERNEL_SOURCES = {
     "sgcn_fwd_stats": "skeleton_action_recognition_tpu_torch/csrc/sgcn_fwd.cu",
+    **{name: "skeleton_action_recognition_tpu_torch/csrc/block_tail.cu"
+       for name in TAIL_KERNELS},
 }
+# the tail kernels replace no TPU kernel: XLA fuses this elementwise work
+KERNEL_REPLACES.update({
+    "block_tail_fwd": "none: XLA fuses skeleton_action_recognition_tpu/"
+                      "models/stgcn.py:179 and :316",
+    "block_tail_bwd": "none: XLA fuses the VJP of skeleton_action_"
+                      "recognition_tpu/models/stgcn.py:179 and :316",
+    "tconv_gue": "none: XLA fuses skeleton_action_recognition_tpu/ops/"
+                 "pallas/tconv.py:380-386",
+})
 
 
 def emit(phase, **record):
@@ -1147,6 +1194,129 @@ def phase_tconv_kernel(device):
     return {k: dtype_entries(tot) for k, tot in totals.items()}
 
 
+def tail_inputs(t, c, dtype, res_dtype, device, g):
+    """``u, scale2, shift2, res, g_out, g_u, g_sum, g_sumsq`` of one
+    block's tail at NM=256 (``res`` None for ``res_dtype`` None)."""
+    shape = (TRAIN_NM, t, 25, c)
+    u = torch.randn(shape, generator=g, device=device).to(dtype)
+    scale2 = torch.randn(c, generator=g, device=device)
+    shift2 = 0.1 * torch.randn(c, generator=g, device=device)
+    res = (None if res_dtype is None else
+           torch.randn(shape, generator=g, device=device).to(res_dtype))
+    g_out = torch.randn(shape, generator=g, device=device)
+    g_u = torch.randn(shape, generator=g, device=device).to(dtype)
+    g_sum = torch.randn(c, generator=g, device=device)
+    g_sumsq = 0.1 * torch.randn(c, generator=g, device=device)
+    return u, scale2, shift2, res, g_out, g_u, g_sum, g_sumsq
+
+
+def phase_block_tail_kernel(device):
+    """The fused blocks' tail kernels (``block_tail_fwd``,
+    ``block_tail_bwd``, ``tconv_gue``) through their wrappers against
+    their plain versions at the three stride-1 shapes, NM=256, ``u`` in f32
+    and bf16, the residual absent, f32 and bf16: out, g_u, g_res and gue
+    bit for bit, g_scale2/g_shift2 within TAIL_SUM_TOL of the largest plain
+    value, two launches of each bit for bit, and CUDA-event times of each
+    kernel and plain version beside its bound."""
+    g = torch.Generator(device=device).manual_seed(SEED + 23)
+    totals = {k: {name: Totals() for name in DTYPES} for k in TAIL_KERNELS}
+    emit("block_tail_build", ptxas=ptxas_entries("block_tail.cu",
+                                                 "block_tail"))
+    for name, dtype in DTYPES.items():
+        for (t, c), _ in TCONV_SHAPES:
+            for res_name, res_dtype in TAIL_RESIDUALS.items():
+                args = tail_inputs(t, c, dtype, res_dtype, device, g)
+                u, scale2, shift2, res, g_out, g_u, g_sum, g_sumsq = args
+
+                def fwd():
+                    return tconv._tail_forward(u, scale2, shift2, res)
+
+                def fwd_plain():
+                    return tconv.block_tail_reference(u, scale2, shift2, res)
+
+                out = fwd()
+
+                def bwd():
+                    return tconv._tail_backward(g_out, out, u, scale2,
+                                                res_dtype)
+
+                def bwd_plain():
+                    return tconv.block_tail_backward_reference(
+                        g_out, out, u, scale2, res_dtype)
+
+                def gue():
+                    return tconv.tconv_gue(g_u, u, g_sum, g_sumsq)
+
+                def gue_plain():
+                    return tconv.tconv_gue_reference(g_u, u, g_sum, g_sumsq)
+
+                # out, g_u, g_scale2, g_shift2, g_res, gue
+                got = (out, *bwd(), gue())
+                again = (fwd(), *bwd(), gue())
+                torch.cuda.synchronize()
+                bit_identical = all(
+                    (p is None and q is None) or torch.equal(p, q)
+                    for p, q in zip(got, again))
+                del again
+                want = (fwd_plain(), *bwd_plain(), gue_plain())
+                named = dict(zip(TAIL_OUTPUTS, zip(got, want)))
+                # bit for bit but for the sign of a zero, which torch.equal
+                # does not see
+                equal = {k: (p is None and q is None) or (
+                    p.dtype == q.dtype and torch.equal(p, q))
+                    for k, (p, q) in named.items() if k not in TAIL_SUMS}
+                sum_err = {k: rel_err(*named[k]) for k in TAIL_SUMS}
+                spans = {"block_tail_fwd": slice(0, 1),
+                         "block_tail_bwd": slice(1, 5),
+                         "tconv_gue": slice(5, 6)}
+                errs = {k: max_abs_err(*zip(*[
+                    (p, q) for p, q in zip(got[v], want[v])
+                    if p is not None])) for k, v in spans.items()}
+                n_bytes = {k: nbytes(*(x for x in v if x is not None))
+                           for k, v in {
+                               "block_tail_fwd": (u, scale2, shift2, res,
+                                                  out),
+                               "block_tail_bwd": (g_out, out, u, scale2,
+                                                  *got[1:5]),
+                               "tconv_gue": (g_u, u, g_sum, g_sumsq,
+                                             got[5])}.items()}
+                del got, want, named
+                bounds = {k: bound(TAIL_OPS[k] * u.numel(), n_bytes[k], "f32")
+                          for k in TAIL_KERNELS}
+                times = {
+                    "block_tail_fwd": {"ms": cuda_ms(fwd),
+                                       "plain_ms": cuda_ms(fwd_plain)},
+                    "block_tail_bwd": {"ms": cuda_ms(bwd),
+                                       "plain_ms": cuda_ms(bwd_plain)},
+                    "tconv_gue": {"ms": cuda_ms(gue),
+                                  "plain_ms": cuda_ms(gue_plain)},
+                }
+                blocks = TAIL_BLOCKS[name][(t, c)].get(res_name, 0)
+                emit(
+                    "block_tail_kernel", dtype=name, nm=TRAIN_NM, t=t, c=c,
+                    res=res_name, blocks=blocks, equal=equal,
+                    sum_err=sum_err, sum_tol=TAIL_SUM_TOL,
+                    bit_identical=bit_identical, **{
+                        f"{k}_{m}": v for k, d in times.items()
+                        for m, v in d.items()},
+                    **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+                    **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+                    **{f"{k}_bytes_per_elem": v / u.numel()
+                       for k, v in n_bytes.items()},
+                )
+                where = f"u {name}, res {res_name}, {(t, c)}"
+                check(bit_identical, f"block tail repeats differ at {where}")
+                check(all(equal.values()),
+                      f"block tail outputs differ at {where}: {equal}")
+                check(all(v <= TAIL_SUM_TOL for v in sum_err.values()),
+                      f"block tail sums disagree at {where}: {sum_err}")
+                for k, tot in totals.items():
+                    tot[name].add(times[k], errs[k], *bounds[k], blocks)
+                del args, u, res, g_out, g_u, out
+                torch.cuda.empty_cache()
+    return {k: dtype_entries(tot) for k, tot in totals.items()}
+
+
 def seeded_model(name, fused, state=None, seed=SEED, **options):
     """Full-width NTU-60 ST-GCN computing in ``name`` ("f32" or "bf16"),
     with the model's other ``options``. Without ``state``: CONV_INIT
@@ -1504,7 +1674,8 @@ def phase_export(device, state, requests, folded):
 
 # the port's kernel entry points, as ops.build.launch counts their calls
 COUNTERS = ("sgcn_fwd", "sgcn_fwd_stats", "sgcn_bwd", "tconv_fwd",
-            "tconv_bwd", "radar_fwd", "radar_bwd", "radar_bwd_loc_lam",
+            "tconv_bwd", "block_tail_fwd", "block_tail_bwd", "tconv_gue",
+            "radar_fwd", "radar_bwd", "radar_bwd_loc_lam",
             "radar_dense_fwd", "radar_dense_bwd", "stft_fwd", "stft_bwd")
 
 
@@ -3459,7 +3630,8 @@ REMAT_CONFIGS = {
         "bf16", dict(fused_sgcn=True, fused_sgcn_min_channels=128,
                      sgcn_stats=True, fused_tconv=True),
         {"sgcn_fwd_stats": 6, "sgcn_bwd": 6, "tconv_fwd": 4,
-         "tconv_bwd": 4}),
+         "tconv_bwd": 4, "block_tail_fwd": 4, "block_tail_bwd": 4,
+         "tconv_gue": 4}),
     "f32_fused_min128": (
         "f32", dict(fused_sgcn=True, fused_sgcn_min_channels=128),
         {"sgcn_fwd": 6, "sgcn_bwd": 6}),
@@ -3467,7 +3639,8 @@ REMAT_CONFIGS = {
 REMAT_POLICIES = ("off", "full", "dots")
 # the kernels a block's forward launches, which remat runs again in the
 # backward under either policy
-FORWARD_KERNELS = ("sgcn_fwd", "sgcn_fwd_stats", "tconv_fwd")
+FORWARD_KERNELS = ("sgcn_fwd", "sgcn_fwd_stats", "tconv_fwd",
+                   "block_tail_fwd")
 # the first step's loss, gradient norm and running statistics under a
 # policy against remat off, relative: the same computation, the recompute
 # bit for bit where cuDNN's and the kernels' sums are (f32: the JAX
@@ -4075,7 +4248,8 @@ def main():
     totals = phase_kernel(device)
     bwd_totals = phase_kernel_bwd(device)
     new_totals = {"sgcn_fwd_stats": phase_kernel_stats(device),
-                  **phase_tconv_kernel(device)}
+                  **phase_tconv_kernel(device),
+                  **phase_block_tail_kernel(device)}
     lap("kernels")
     rng = np.random.default_rng(SEED)
     requests = {
@@ -4155,7 +4329,8 @@ def main():
          "source": KERNEL_SOURCES.get(
              name, f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu"),
          "replaces": KERNEL_REPLACES[name], **new_totals[name]}
-        for name in ("sgcn_fwd_stats", "tconv_fwd", "tconv_bwd")
+        for name in ("sgcn_fwd_stats", "tconv_fwd", "tconv_bwd",
+                     *TAIL_KERNELS)
     ] + [
         {"name": name, "route": "cuda",
          "source": f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu",

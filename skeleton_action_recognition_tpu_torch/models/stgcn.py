@@ -15,7 +15,8 @@ with CUDA kernels, as in the JAX model: ``sgcn_stats`` takes BN1's batch
 statistics from the fused spatial conv's epilogue
 (:class:`StatsTemporalConv`), and ``fused_tconv`` runs BN1's normalize, the
 ReLU, the temporal conv and BN2's statistics in one kernel on the stride-1
-blocks (:class:`FusedTemporalConv`). Both keep ``TemporalConv``'s state
+blocks, and BN2's normalize, the residual and the block's ReLU in another
+(:class:`FusedTemporalConv`). Both keep ``TemporalConv``'s state
 dict. In a process group every batch statistic, the kernels' sums
 included, is taken over the global batch
 (:func:`..parallel.distributed.global_means`).
@@ -46,6 +47,7 @@ from skeleton_action_recognition_tpu_torch.models.layers import (
 from skeleton_action_recognition_tpu_torch.ops.tconv import (
     TAPS,
     affine_relu_tconv,
+    block_tail,
 )
 from skeleton_action_recognition_tpu_torch.parallel.distributed import (
     global_means,
@@ -144,11 +146,14 @@ class FusedTemporalConv(nn.Module):
     through the fused kernels (:func:`..ops.tconv.affine_relu_tconv`):
     BN1's normalize, folded into a per-channel affine from the batch's
     statistics, the ReLU, the 9-tap conv and BN2's batch statistics in one
-    pass; the JAX package's ``FusedTemporalConv``. Its numerics follow
-    that module: BN1's variance is ``E[x^2] - E[x]^2`` without a clamp at
-    0, and the output is float32 in both modes, whatever ``dtype``. In eval
-    the chain is the plain folded affine, ReLU and conv (no kernel). The
-    parameters are :class:`TemporalConv`'s."""
+    pass; the JAX package's ``FusedTemporalConv``. It also ends the block:
+    ``forward(x, res)`` returns ``relu(BN2(conv) + res)`` (``res=None``:
+    no residual), in training through :func:`..ops.tconv.block_tail`'s
+    kernels. Its numerics follow the JAX module and block: BN1's variance
+    is ``E[x^2] - E[x]^2`` without a clamp at 0, and the output is float32
+    in both modes, whatever ``dtype``. In eval the chain is the plain
+    folded affine, ReLU and conv (no kernel). The parameters are
+    :class:`TemporalConv`'s."""
 
     def __init__(
         self, in_channels: int, filters: int, kernel_size: int = TAPS,
@@ -165,7 +170,7 @@ class FusedTemporalConv(nn.Module):
         self.Conv_0 = _conv(in_channels, filters, kernel_size, 1, generator)
         self.BatchNorm_1 = BatchNorm(filters, dtype)
 
-    def forward(self, x):
+    def forward(self, x, res=None):
         bn0, conv, bn1 = self.BatchNorm_0, self.Conv_0, self.BatchNorm_1
         cd = self.dtype or x.dtype
         if not self.training:
@@ -178,7 +183,8 @@ class FusedTemporalConv(nn.Module):
             u = y.permute(0, 2, 3, 1).float() + conv.bias
             scale2, shift2 = bn1.folded_affine(bn1.running_mean,
                                                bn1.running_var)
-            return u * scale2 + shift2
+            y = u * scale2 + shift2
+            return torch.relu(y if res is None else y + res)
         xf = x.float()
         axes = (0, 1, 2)
         mean, sq = global_means(xf.mean(axes), (xf * xf).mean(axes),
@@ -194,7 +200,8 @@ class FusedTemporalConv(nn.Module):
         bn0.update_running(mean, var)
         bn1.update_running(mean2, var2)
         scale2, shift2 = bn1.folded_affine(mean2, var2)
-        return u.float() * scale2 + shift2
+        return block_tail(u, scale2, shift2,
+                          None if res is None else res.contiguous())
 
 
 class StatsTemporalConv(nn.Module):
@@ -248,7 +255,8 @@ class STConvBlock(nn.Module):
     The temporal chain, as the JAX block routes it: with ``sgcn_stats`` and
     a fused default spatial conv, :class:`StatsTemporalConv` (at either
     stride; it takes precedence over ``fused_tconv``); else with
-    ``fused_tconv`` at stride 1, :class:`FusedTemporalConv`; else
+    ``fused_tconv`` at stride 1, :class:`FusedTemporalConv`, which takes
+    the residual and applies the block's ReLU itself; else
     :class:`TemporalConv`."""
 
     def __init__(
@@ -302,6 +310,8 @@ class STConvBlock(nn.Module):
         else:
             res = x
         x = self.sgcn(x, a)
+        if isinstance(self.tgcn, FusedTemporalConv):
+            return self.tgcn(x, res if self.residual else None)
         # in training a stats-emitting spatial conv gives (out, s, ss)
         x = self.tgcn(*x) if self.use_stats and self.training else self.tgcn(x)
         return torch.relu(x + res)

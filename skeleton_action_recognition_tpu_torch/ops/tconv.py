@@ -21,6 +21,14 @@ the ReLU mask and ``dscale = sum(ghm * s)`` in f32.
 
 The conv weight is ``nn.Conv2d``'s ``(C, C, 9, 1)``, so a module holding it
 keeps the stock ``TemporalConv``'s state dict.
+
+The block's tail after the chain, BN2's normalize, the residual add and the
+ReLU (:func:`block_tail`), and the backward's fold of the statistics'
+cotangents into ``gue`` (:func:`tconv_gue`) run through ``csrc/
+block_tail.cu``, which replaces no TPU kernel: XLA fuses that elementwise
+tail into one pass on the TPU, and eager PyTorch ran it as ~18 passes a
+block. Device-memory bytes bound them; each equals its eager expression bit
+for bit.
 """
 
 from __future__ import annotations
@@ -172,10 +180,14 @@ def _check_kernel(s):
         )
 
 
+def _suffix(dtype) -> str:
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
 def _kernel(source: str, n_pointers: int, n_ints: int, dtype):
     stem = source.removesuffix(".cu")
-    suffix = "f32" if dtype == torch.float32 else "bf16"
-    return kernel_function(source, f"{stem}_{suffix}", n_pointers, n_ints)
+    return kernel_function(source, f"{stem}_{_suffix(dtype)}", n_pointers,
+                           n_ints)
 
 
 def _tile_partials(nm, t, c, dtype):
@@ -293,9 +305,8 @@ class AffineReluTconv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_u, g_sum, g_sumsq):
         s, scale, shift, weight, _, u = ctx.saved_tensors
-        acc = _acc_dtype(s.dtype)
-        gue = (g_u.to(acc) + g_sum + 2.0 * u.to(acc) * g_sumsq).to(s.dtype)
-        return _backward(s, scale, shift, weight, gue.contiguous())
+        return _backward(s, scale, shift, weight,
+                         tconv_gue(g_u, u, g_sum, g_sumsq))
 
 
 def affine_relu_tconv(s, scale, shift, weight, bias):
@@ -310,3 +321,183 @@ def affine_relu_tconv(s, scale, shift, weight, bias):
     """
     _check(s, scale, shift, weight, bias)
     return AffineReluTconv.apply(s, scale, shift, weight, bias)
+
+
+# csrc/block_tail.cuh's threads a block and most blocks a launch: the tail's
+# backward writes one partial of 2 C sums a block
+_TAIL_THREADS, _TAIL_BLOCKS = 256, 4 * 132
+
+
+def tconv_gue_reference(g_u, u, g_sum, g_sumsq):
+    """Plain PyTorch version of the fold kernel: the cotangent of ``u``
+    with the statistics' cotangents folded in, ``gue = g_u + g_sum + 2 u
+    g_sumsq`` in f32 (f64) and rounded to ``u.dtype``, as the JAX VJP does
+    (``ops/pallas/tconv.py:380-386``)."""
+    acc = _acc_dtype(u.dtype)
+    return (g_u.to(acc) + g_sum + 2.0 * u.to(acc) * g_sumsq).to(u.dtype)
+
+
+def tconv_gue(g_u, u, g_sum, g_sumsq):
+    """:func:`tconv_gue_reference`'s ``gue``, through ``csrc/
+    block_tail.cu``'s fold kernel (counted in ``launch.tconv_gue``) for
+    CUDA tensors, bit for bit."""
+    if u.device.type == "cpu":
+        return tconv_gue_reference(g_u, u, g_sum, g_sumsq)
+    g_u, g_sum, g_sumsq = (g_u.to(u.dtype).contiguous(), g_sum.contiguous(),
+                           g_sumsq.contiguous())
+    check_cuda("tconv_gue", g_u=g_u, u=u, g_sum=g_sum, g_sumsq=g_sumsq)
+    gue = torch.empty_like(u)
+    c = u.shape[-1]
+    if gue.numel():
+        launch(_tail_kernel("tconv_gue", 5, u.dtype), "tconv_gue", u.device,
+               g_u.data_ptr(), u.data_ptr(), g_sum.data_ptr(),
+               g_sumsq.data_ptr(), gue.data_ptr(), u.numel() // c, c,
+               _tail_vec(c, g_u=g_u, u=u))
+    return gue
+
+
+def block_tail_reference(u, scale2, shift2, res=None):
+    """Plain PyTorch version of the tail's forward kernel: the block's
+    output ``relu(u * scale2 + shift2 + res)`` (``res=None``: no
+    residual), computed in f32 (f64 for an f64 ``u``) as the eager block
+    did, and left in f32."""
+    y = u.to(_acc_dtype(u.dtype)) * scale2 + shift2
+    return torch.relu(y if res is None else y + res)
+
+
+def block_tail_backward_reference(g_out, out, u, scale2, res_dtype=None):
+    """Plain PyTorch version of the tail's backward kernel: from the
+    cotangent ``g_out`` of ``out = block_tail_reference(u, scale2, shift2,
+    res)``, ``(g_u, g_scale2, g_shift2, g_res)``. The ReLU's mask is
+    ``out > 0`` (autograd's ``threshold_backward`` on the saved output);
+    ``g_u`` in ``u.dtype``; the two sums over every row in f32 (f64);
+    ``g_res`` in ``res_dtype``, None for None."""
+    acc = _acc_dtype(u.dtype)
+    gm = torch.where(out <= 0, torch.zeros_like(g_out), g_out)
+    rows = tuple(range(u.ndim - 1))
+    return ((gm * scale2).to(u.dtype), (gm * u.to(acc)).sum(rows),
+            gm.sum(rows), None if res_dtype is None else gm.to(res_dtype))
+
+
+def _tail_kernel(name: str, n_pointers: int, *dtypes):
+    return kernel_function("block_tail.cu",
+                           "_".join([name, *map(_suffix, dtypes)]),
+                           n_pointers, 3)
+
+
+def _tail_vec(c: int, **tensors) -> int:
+    """The channels a thread of the tail kernels takes at once: the largest
+    of 8, 4, 2 and 1 that divides ``c`` and leaves at most a block's
+    threads to a row. Raises unless each of ``tensors`` starts on a
+    16-byte boundary, as every fresh allocation does: the kernels' vector
+    accesses need it."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    for vec in (8, 4, 2, 1):
+        if c % vec == 0 and c // vec <= _TAIL_THREADS:
+            return vec
+    raise ValueError(
+        f"the block-tail kernels take C <= {_TAIL_THREADS} or a multiple of "
+        f"2, 4 or 8 up to {8 * _TAIL_THREADS}, got {c}"
+    )
+
+
+def _tail_forward(u, scale2, shift2, res):
+    """The block's output through the kernel on CUDA, the plain version on
+    the CPU."""
+    if u.device.type == "cpu":
+        return block_tail_reference(u, scale2, shift2, res)
+    check_cuda("block_tail", u=u, scale2=scale2, shift2=shift2,
+               **({} if res is None else {"res": res}))
+    out = torch.empty(u.shape, dtype=torch.float32, device=u.device)
+    c = u.shape[-1]
+    if out.numel():
+        vec = _tail_vec(c, u=u, **({} if res is None else {"res": res}))
+        launch(
+            _tail_kernel("block_tail_fwd", 5, u.dtype,
+                         torch.float32 if res is None else res.dtype),
+            "block_tail_fwd", u.device, u.data_ptr(), scale2.data_ptr(),
+            shift2.data_ptr(), None if res is None else res.data_ptr(),
+            out.data_ptr(), u.numel() // c, c, vec,
+        )
+    return out
+
+
+def _tail_backward(g_out, out, u, scale2, res_dtype):
+    """``(g_u, g_scale2, g_shift2, g_res)`` through the kernel on CUDA, the
+    plain version on the CPU."""
+    if u.device.type == "cpu":
+        return block_tail_backward_reference(g_out, out, u, scale2,
+                                             res_dtype)
+    check_cuda("block_tail", g_out=g_out, out=out, u=u, scale2=scale2)
+    c = u.shape[-1]
+    g_u = torch.empty_like(u)
+    g_res = (None if res_dtype is None
+             else torch.empty(u.shape, dtype=res_dtype, device=u.device))
+    sums = torch.zeros(2 * c, dtype=torch.float32, device=u.device)
+    if u.numel():
+        rows = u.numel() // c
+        vec = _tail_vec(c, g_out=g_out, out=out, u=u)
+        slots = _TAIL_THREADS // (c // vec)
+        parts = min(-(-rows // slots), _TAIL_BLOCKS)
+        ws = torch.empty(parts * 2 * c, dtype=torch.float32,
+                         device=u.device)
+        launch(
+            _tail_kernel("block_tail_bwd", 8, u.dtype, res_dtype or
+                         torch.float32),
+            "block_tail_bwd", u.device, g_out.data_ptr(), out.data_ptr(),
+            u.data_ptr(), scale2.data_ptr(), g_u.data_ptr(),
+            None if g_res is None else g_res.data_ptr(), ws.data_ptr(),
+            sums.data_ptr(), rows, c, vec,
+        )
+    return g_u, sums[c:], sums[:c], g_res
+
+
+class BlockTail(torch.autograd.Function):
+    """The block's tail with the kernels on both passes. Saves ``u`` (the
+    tensor :class:`AffineReluTconv` saves too), ``scale2`` and ``out`` (what
+    the eager ReLU saved), and no f32 copy of ``u``."""
+
+    @staticmethod
+    def forward(ctx, u, scale2, shift2, res):
+        out = _tail_forward(u, scale2, shift2, res)
+        ctx.res_dtype = None if res is None else res.dtype
+        ctx.save_for_backward(u, scale2, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        u, scale2, out = ctx.saved_tensors
+        res_dtype = ctx.res_dtype if ctx.needs_input_grad[3] else None
+        return _tail_backward(g_out.contiguous(), out, u, scale2, res_dtype)
+
+
+def block_tail(u, scale2, shift2, res=None):
+    """The output of a fused ST-GCN block, ``relu(u * scale2 + shift2 +
+    res)`` in f32, differentiable in every argument: BN2's normalize
+    (folded into ``scale2``, ``shift2`` from the batch's statistics), the
+    residual add and the ReLU after the fused temporal chain.
+
+    ``u (..., C)`` in f32 or bf16 (the chain's output); ``scale2``,
+    ``shift2`` f32 ``(C,)``; ``res`` like ``u`` in shape, f32 or bf16, or
+    None. CPU tensors go to the plain versions; CUDA tensors launch the
+    forward kernel (counted in ``launch.block_tail_fwd``) and, in the
+    backward, its backward kernel (``launch.block_tail_bwd``), or raise.
+    """
+    if u.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
+    c = u.shape[-1]
+    for name, t in (("scale2", scale2), ("shift2", shift2)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,):
+            raise ValueError(f"{name} must be float32 ({c},), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if res is not None and (res.dtype not in (torch.float32, torch.bfloat16)
+                            or res.shape != u.shape):
+        raise ValueError(f"res must be float32 or bfloat16 "
+                         f"{tuple(u.shape)}, got {res.dtype} "
+                         f"{tuple(res.shape)}")
+    for t in (scale2, shift2) + (() if res is None else (res,)):
+        if t.device != u.device:
+            raise ValueError(f"an argument is on {t.device}, u on {u.device}")
+    return BlockTail.apply(u, scale2, shift2, res)

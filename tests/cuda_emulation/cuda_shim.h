@@ -1,10 +1,12 @@
 // The CUDA constructs of the f32 spatial graph-conv kernels
-// (sgcn_tile_f32.cuh), the STFT kernels (stft_fft.cuh) and the spline radar
-// kernels (radar_spline.cuh), emulated on the CPU: a block's threads are
-// std::threads, __syncthreads a barrier, dynamic shared memory a static
-// array, blockIdx and threadIdx thread-local. Force-included (-include)
-// before a kernels' header; see tests/test_torch_sgcn_emulated.py,
-// tests/test_torch_stft_emulated.py and tests/test_torch_radar_emulated.py.
+// (sgcn_tile_f32.cuh), the STFT kernels (stft_fft.cuh), the spline radar
+// kernels (radar_spline.cuh) and the block-tail kernels (block_tail.cuh),
+// emulated on the CPU: a block's threads are std::threads, __syncthreads a
+// barrier, dynamic shared memory a static array, blockIdx and threadIdx
+// thread-local. Force-included (-include) before a kernels' header; see
+// tests/test_torch_sgcn_emulated.py, tests/test_torch_stft_emulated.py,
+// tests/test_torch_radar_emulated.py and
+// tests/test_torch_block_tail_emulated.py.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -44,3 +46,7 @@ extern std::barrier<>* emu_bar;
 #define blockIdx emu_blockIdx
 #define gridDim emu_gridDim
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+// single roundings, never contracted into an FMA (the host build has no
+// -mfma)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }

@@ -243,7 +243,10 @@ def _module_input(seed, c=8):
 def test_fused_temporal_conv_matches_jax():
     """Train-mode output and both BatchNorms' updated statistics, then
     eval output, from the same randomized variables; the state dict is
-    the stock TemporalConv's."""
+    the stock TemporalConv's. The port's module ends the block, so its
+    output is the JAX module's plus a residual, through the ReLU; a
+    residual of 10 (above every |output|) leaves the ReLU the identity and
+    every output compared."""
     x = _module_input(5)
     variables = _module_variables(jax_stgcn.FusedTemporalConv(8), x, False,
                                   seed=6)
@@ -254,17 +257,20 @@ def test_fused_temporal_conv_matches_jax():
     want, updated = jax_stgcn.FusedTemporalConv(8).apply(
         variables, jnp.asarray(x), True, mutable=["batch_stats"]
     )
-    got = port.train()(torch.from_numpy(x))
+    res = torch.full(x.shape, 10.0)
+    assert np.abs(want).max() < 10.0
+    got = port.train()(torch.from_numpy(x), res)
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.detach().numpy(), want, **MODULE_TOL)
+    np.testing.assert_allclose(got.detach().numpy() - 10.0, want,
+                               **MODULE_TOL)
     _assert_stats_match(port, updated["batch_stats"])
 
     port.load_state_dict(interop.flax_to_state_dict(variables))
     want = jax_stgcn.FusedTemporalConv(8).apply(variables, jnp.asarray(x),
                                                 False)
     with torch.no_grad():
-        got = port.eval()(torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), want, **MODULE_TOL)
+        got = port.eval()(torch.from_numpy(x), res)
+    np.testing.assert_allclose(got.numpy() - 10.0, want, **MODULE_TOL)
 
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -310,3 +316,51 @@ def test_fused_temporal_conv_honours_frozen_stats():
     port(torch.from_numpy(_module_input(9)))
     assert not torch.equal(port.BatchNorm_1.running_mean,
                            before["BatchNorm_1.running_mean"])
+
+
+@pytest.mark.parametrize("c_in,residual", [(8, True), (4, True), (8, False)],
+                         ids=["identity", "projected", "none"])
+def test_fused_st_conv_block_matches_jax(c_in, residual):
+    """A fused ``STConvBlock`` in training, where the port's
+    ``FusedTemporalConv`` ends the block (residual and ReLU through
+    ``block_tail``), against the JAX block on the same variables: output,
+    updated statistics, and the gradients of ``sum(sin(out))`` with respect
+    to the input and every parameter."""
+    x = _module_input(11, c=c_in)
+    a = stgcn.spatial_adjacency()
+    module = jax_stgcn.STConvBlock(8, residual=residual, fused_tconv=True)
+    variables = _module_variables(module, x, jnp.asarray(a), False, seed=12)
+
+    def loss(params, x):
+        (out, _), updated = module.apply(
+            {**variables, "params": params}, x, jnp.asarray(a), True,
+            mutable=["batch_stats"])
+        return jnp.sin(out).sum(), (out, updated)
+
+    (_, (want, updated)), (g_params, g_x) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(variables["params"],
+                                            jnp.asarray(x))
+    port = stgcn.STConvBlock(c_in, 8, residual=residual, fused_tconv=True)
+    assert isinstance(port.tgcn, stgcn.FusedTemporalConv)
+    port.load_state_dict(interop.flax_to_state_dict(variables))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = port.train()(xt, torch.from_numpy(a))
+    assert got.dtype == torch.float32 and bool((got == 0).any())
+    np.testing.assert_allclose(got.detach().numpy(), want, **MODULE_TOL)
+    _assert_stats_match(port, updated["batch_stats"])
+    got.sin().sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), g_x, **MODULE_TOL)
+    want_grads = {k: v.numpy() for k, v in interop.flax_to_state_dict(
+        {"params": jax.device_get(g_params)}).items()}
+    largest = max(np.abs(w).max() for w in want_grads.values())
+    for name, p in port.named_parameters():
+        got_g, want_g = p.grad.numpy(), want_grads[name]
+        if name in ("tgcn.Conv_0.bias", "residual_conv.bias"):
+            # ahead of a training BatchNorm: 0 but for rounding, both sides
+            assert max(np.abs(got_g).max(),
+                       np.abs(want_g).max()) <= 1e-5 * largest, name
+        else:
+            # f32 sums over every row in another order: MODULE_TOL's 2e-4
+            # of the largest |gradient| of the tensor
+            assert (np.abs(got_g - want_g).max()
+                    <= MODULE_TOL["rtol"] * np.abs(want_g).max()), name
