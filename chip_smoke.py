@@ -10,8 +10,8 @@ so the exit code is not 0.
 
 1. ``env``: the card, its power limit, torch and CUDA versions. Without a
    CUDA device the script stops here (it never falls back to the CPU).
-2. ``build``: compiles the eleven ``csrc/*.cu`` sources (sgcn, radar,
-   radar_dense, stft and tconv, forward and backward, and the fused
+2. ``build``: compiles the thirteen ``csrc/*.cu`` sources (sgcn, radar,
+   radar_dense, stft, tconv and ctrgc, forward and backward, and the fused
    blocks' tail, ``block_tail.cu``) for ``sm_90a`` from
    the checkout, one ``nvcc`` each, at once (seconds, and the compiler's
    register and shared-memory reports); ``sgcn_build``: the registers,
@@ -45,6 +45,15 @@ so the exit code is not 0.
    sums within ``TAIL_SUM_TOL``, two launches of each bit for bit,
    CUDA-event times of kernel and plain version beside the bound and the
    bytes an element; first (``block_tail_build``) their ptxas reports.
+   ``ctrgc_kernel``: CTR-GCN's channel-wise aggregation kernels (#12
+   ``ctrgc_fwd``, #13 ``ctrgc_bwd``) against their plain version (the
+   published einsums) at the ten blocks' shapes of the 64-frame training
+   cell, NM=256, f32 and bf16: z, dx3 and ds within ``CTRGC_TOL``, two
+   launches bit for bit, CUDA-event times of kernel and plain version
+   beside the bound; first (``ctrgc_build``) their ptxas reports, last
+   (``ctrgc_step``) one training step's launches, 10 of each. Alone:
+   ``python3 -c "import torch, chip_smoke as cs; cs.phase_env();
+   cs.phase_ctrgc_kernel(torch.device('cuda', 0))"``.
 5. ``slice``: the full-width NTU-60 ST-GCN (T=300) from seeded random
    weights and BatchNorm statistics, behind ``Predictor(max_batch=64)``.
    Requests of 1, 7 and 64 clips: every row finite and summing to 1, ten
@@ -342,8 +351,10 @@ from skeleton_action_recognition_tpu_torch.models import (
 )
 from skeleton_action_recognition_tpu_torch.models import stgcn
 from skeleton_action_recognition_tpu_torch.models.stgcn import Model
+from skeleton_action_recognition_tpu_torch.models import ctrgcn
 from skeleton_action_recognition_tpu_torch.ops import (
     build,
+    ctrgc,
     radar,
     resample,
     sgcn,
@@ -393,7 +404,8 @@ PROB_ATOL = {"f32": 1e-4, "bf16": 5e-2}
 REQUESTS = (1, 7, 64)
 SOURCES = ("sgcn_fwd.cu", "sgcn_bwd.cu", "radar_fwd.cu", "radar_bwd.cu",
            "stft_fwd.cu", "stft_bwd.cu", "tconv_fwd.cu", "tconv_bwd.cu",
-           "radar_dense_fwd.cu", "radar_dense_bwd.cu", "block_tail.cu")
+           "radar_dense_fwd.cu", "radar_dense_bwd.cu", "block_tail.cu",
+           "ctrgc_fwd.cu", "ctrgc_bwd.cu")
 SGCN_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_fwd.cu"
 SGCN_REPLACES = "skeleton_action_recognition_tpu/ops/pallas/sgcn.py:90"
 SGCN_BWD_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_bwd.cu"
@@ -578,6 +590,19 @@ TAIL_OPS = {"block_tail_fwd": 4, "block_tail_bwd": 5, "tconv_gue": 4}
 TAIL_KERNELS = tuple(TAIL_OPS)
 TAIL_OUTPUTS = ("out", "g_u", "g_scale2", "g_shift2", "g_res", "gue")
 TAIL_SUMS = ("g_scale2", "g_shift2")
+# CTR-GCN's channel-wise aggregation (#12 forward, #13 backward) at the
+# 64-frame training cell's batch (128 clips x 2 bodies): (C, T) of its ten
+# blocks' graph convs (the stride is in the temporal conv after) and how
+# many blocks have it
+CTRGC_NM = 256
+CTRGC_SHAPES = [((64, 64), 4), ((128, 64), 1), ((128, 32), 2),
+                ((256, 32), 1), ((256, 16), 2)]
+CTRGC_KERNELS = ("ctrgc_fwd", "ctrgc_bwd")
+CTRGC_OUTPUTS = ("z", "dx3", "ds")
+# kernel vs plain, max |diff| / max |plain| of each output: both sum in f32
+# in other orders (z and dx3 in bf16 are rounded once from sums that
+# differ in their last f32 bits, so an element may sit one bf16 ulp away)
+CTRGC_TOL = {"f32": 1e-5, "bf16": 2**-7}
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): FLOP/s of
 # f32 on the CUDA cores (TF32 off) and of bf16 on the tensor cores, and the
 # device memory's bytes/s. A kernel's bound is the larger of its operations
@@ -650,6 +675,8 @@ KERNEL_SOURCES = {
 }
 # the tail kernels replace no TPU kernel: XLA fuses this elementwise work
 KERNEL_REPLACES.update({
+    "ctrgc_fwd": "none: the JAX package has no CTR-GCN",
+    "ctrgc_bwd": "none: the JAX package has no CTR-GCN",
     "block_tail_fwd": "none: XLA fuses skeleton_action_recognition_tpu/"
                       "models/stgcn.py:179 and :316",
     "block_tail_bwd": "none: XLA fuses the VJP of skeleton_action_"
@@ -1317,6 +1344,109 @@ def phase_block_tail_kernel(device):
     return {k: dtype_entries(tot) for k, tot in totals.items()}
 
 
+def ctrgc_inputs(c, t, dtype, device, g):
+    """``x3, s, dz`` of one CTR-GCN block's aggregation at ``CTRGC_NM``."""
+    x3 = torch.randn((CTRGC_NM, 3, c, t, 25), generator=g,
+                     device=device).to(dtype)
+    s = torch.randn((CTRGC_NM, 3, c, 25, 25), generator=g, device=device)
+    dz = torch.randn((CTRGC_NM, c, t, 25), generator=g,
+                     device=device).to(dtype)
+    return x3, s, dz
+
+
+def ctrgc_step_launches(device, batch=CTRGC_NM // 2):
+    """Each aggregation kernel's launches in one training step of the
+    full-width CTR-GCN (64 frames, bf16, remat off)."""
+    model = ctrgcn.Model(num_classes=60, dtype=torch.bfloat16, remat=False,
+                         device=device,
+                         generator=torch.Generator().manual_seed(SEED))
+    x = torch.randn(batch, 3, 64, 25, 2, device=device)
+    reset_launches()
+    model(x).sum().backward()
+    torch.cuda.synchronize()
+    launches = read_launches(CTRGC_KERNELS)
+    del model, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ctrgc_kernel(device):
+    """CTR-GCN's aggregation kernels (#12 ``ctrgc_fwd``, #13
+    ``ctrgc_bwd``) through their wrappers against their plain version (the
+    published model's einsums, what eager PyTorch runs) at the ten blocks'
+    shapes of the 64-frame cell, NM=256, f32 and bf16: z, dx3 and ds within
+    ``CTRGC_TOL``, two launches of each bit for bit, CUDA-event times of
+    kernel and plain version beside the bound (f32 CUDA-core operations
+    and the operands' bytes); then one training step's launches (10 of
+    each). Returns the kernels-line totals and those launches."""
+    g = torch.Generator(device=device).manual_seed(SEED + 29)
+    totals = {k: {name: Totals() for name in DTYPES} for k in CTRGC_KERNELS}
+    emit("ctrgc_build", ptxas={
+        **ptxas_entries("ctrgc_fwd.cu", "ctrgc"),
+        **ptxas_entries("ctrgc_bwd.cu", "ctrgc")})
+    for name, dtype in DTYPES.items():
+        for (c, t), blocks in CTRGC_SHAPES:
+            x3, s, dz = ctrgc_inputs(c, t, dtype, device, g)
+
+            def fwd():
+                return ctrgc._forward(x3, s)
+
+            def fwd_plain():
+                return ctrgc.channel_aggregate_reference(x3, s)
+
+            def bwd():
+                return ctrgc._backward(dz, x3, s)
+
+            def bwd_plain():
+                return ctrgc.channel_aggregate_backward_reference(dz, x3, s)
+
+            got = (fwd(), *bwd())
+            again = (fwd(), *bwd())
+            torch.cuda.synchronize()
+            bit_identical = all(torch.equal(p, q) for p, q in zip(got, again))
+            del again
+            want = (fwd_plain(), *bwd_plain())
+            errs = {k: rel_err(p, q)
+                    for k, p, q in zip(CTRGC_OUTPUTS, got, want)}
+            tol = {"z": CTRGC_TOL[name], "dx3": CTRGC_TOL[name],
+                   "ds": CTRGC_TOL["f32"]}
+            ops = 2 * 3 * CTRGC_NM * c * t * 25 * 25
+            bounds = {"ctrgc_fwd": bound(ops, nbytes(x3, s, got[0]), "f32"),
+                      "ctrgc_bwd": bound(2 * ops, nbytes(dz, x3, s, *got[1:]),
+                                         "f32")}
+            abs_errs = {"ctrgc_fwd": max_abs_err(got[:1], want[:1]),
+                        "ctrgc_bwd": max_abs_err(got[1:], want[1:])}
+            del got, want
+            times = {
+                "ctrgc_fwd": {"ms": cuda_ms(fwd),
+                              "plain_ms": cuda_ms(fwd_plain)},
+                "ctrgc_bwd": {"ms": cuda_ms(bwd),
+                              "plain_ms": cuda_ms(bwd_plain)},
+            }
+            emit(
+                "ctrgc_kernel", dtype=name, nm=CTRGC_NM, c=c, t=t,
+                blocks=blocks, err=errs, tol=tol,
+                bit_identical=bit_identical, **{
+                    f"{k}_{m}": v for k, d in times.items()
+                    for m, v in d.items()},
+                **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+                **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+            )
+            where = f"{name}, (C, T) = {(c, t)}"
+            check(bit_identical, f"ctrgc repeats differ at {where}")
+            check(all(errs[k] <= tol[k] for k in errs),
+                  f"ctrgc outputs disagree at {where}: {errs}")
+            for k, tot in totals.items():
+                tot[name].add(times[k], abs_errs[k], *bounds[k], blocks)
+            del x3, s, dz
+            torch.cuda.empty_cache()
+    launches = ctrgc_step_launches(device)
+    emit("ctrgc_step", launches=launches)
+    check(launches == dict.fromkeys(CTRGC_KERNELS, 10),
+          f"a CTR-GCN training step launched {launches}")
+    return {k: dtype_entries(tot) for k, tot in totals.items()}, launches
+
+
 def seeded_model(name, fused, state=None, seed=SEED, **options):
     """Full-width NTU-60 ST-GCN computing in ``name`` ("f32" or "bf16"),
     with the model's other ``options``. Without ``state``: CONV_INIT
@@ -1675,6 +1805,7 @@ def phase_export(device, state, requests, folded):
 # the port's kernel entry points, as ops.build.launch counts their calls
 COUNTERS = ("sgcn_fwd", "sgcn_fwd_stats", "sgcn_bwd", "tconv_fwd",
             "tconv_bwd", "block_tail_fwd", "block_tail_bwd", "tconv_gue",
+            "ctrgc_fwd", "ctrgc_bwd",
             "radar_fwd", "radar_bwd", "radar_bwd_loc_lam",
             "radar_dense_fwd", "radar_dense_bwd", "stft_fwd", "stft_bwd")
 
@@ -4247,9 +4378,10 @@ def main():
     lap("build")
     totals = phase_kernel(device)
     bwd_totals = phase_kernel_bwd(device)
+    ctrgc_totals, ctrgc_launches = phase_ctrgc_kernel(device)
     new_totals = {"sgcn_fwd_stats": phase_kernel_stats(device),
                   **phase_tconv_kernel(device),
-                  **phase_block_tail_kernel(device)}
+                  **phase_block_tail_kernel(device), **ctrgc_totals}
     lap("kernels")
     rng = np.random.default_rng(SEED)
     requests = {
@@ -4307,6 +4439,7 @@ def main():
                              k: dense_totals[k]["launches"]
                              for k in DENSE_KERNELS}),
                          ("remat", remat_launches),
+                         ("ctrgcn_train", ctrgc_launches),
                          ("seqpar", seqpar_launches), ("demo", demo_launches)):
         for name, n in counts.items():
             if name in by_path and n:
@@ -4330,7 +4463,7 @@ def main():
              name, f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu"),
          "replaces": KERNEL_REPLACES[name], **new_totals[name]}
         for name in ("sgcn_fwd_stats", "tconv_fwd", "tconv_bwd",
-                     *TAIL_KERNELS)
+                     *TAIL_KERNELS, *CTRGC_KERNELS)
     ] + [
         {"name": name, "route": "cuda",
          "source": f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu",

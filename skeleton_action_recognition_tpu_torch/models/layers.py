@@ -14,12 +14,18 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+import torch.nn.functional as F
+
 from skeleton_action_recognition_tpu_torch.parallel.distributed import (
+    active,
     global_means,
 )
 
 EPSILON = 1e-3
 MOMENTUM = 0.99
+# torch.nn.BatchNorm's defaults, which PyTorch-native models take
+TORCH_EPSILON = 1e-5
+TORCH_MOMENTUM = 0.9
 L2_WEIGHT = 1e-4
 # standard deviation of the unit normal truncated to [-2, 2]
 _TRUNCATED_STD = 0.87962566103423978
@@ -73,6 +79,14 @@ class BatchNorm(nn.Module):
       both: its momentum weighs the batch, and its running variance is
       unbiased.
 
+    ``axis=1`` normalizes the channels of a channels-first ``(N, C, ...)``
+    input instead (CTR-GCN's ``nn.BatchNorm2d``/``1d`` layout, with
+    ``TORCH_EPSILON``); the statistics are then over every other axis.
+    Outside a process group it runs ``torch.nn.functional.batch_norm``, one
+    fused kernel each way, whose running variance is the batch's unbiased
+    one (as the published ``nn.BatchNorm2d``'s); in a process group the
+    moments of the global batch as above.
+
     ``weight``/``bias`` are flax's ``scale``/``bias``, ``running_mean``/
     ``running_var`` its ``batch_stats`` ``mean``/``var``. The normalize runs
     in float32; the output is in ``dtype``, or float32 when ``dtype`` is
@@ -82,8 +96,11 @@ class BatchNorm(nn.Module):
     """
 
     def __init__(self, features: int, dtype=None, epsilon: float = EPSILON,
-                 momentum: float = MOMENTUM):
+                 momentum: float = MOMENTUM, axis: int = -1):
         super().__init__()
+        if axis not in (-1, 1):
+            raise ValueError(f"axis must be -1 or 1, got {axis}")
+        self.axis = axis
         self.dtype = dtype
         self.epsilon = epsilon
         self.momentum = momentum
@@ -94,17 +111,36 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
+        if self.axis == 1 and not active():
+            return self._fused(x)
         xf = x.float()
         if self.training:
-            axes = tuple(range(x.ndim - 1))
+            axis = self.axis % x.ndim
+            axes = tuple(i for i in range(x.ndim) if i != axis)
             mean, sq = global_means(xf.mean(axes), (xf * xf).mean(axes),
-                                    count=xf.numel() // xf.shape[-1])
+                                    count=xf.numel() // xf.shape[axis])
             var = torch.clamp(sq - mean * mean, min=0.0)
             self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         scale = torch.rsqrt(var + self.epsilon) * self.weight
-        y = (xf - mean) * scale + self.bias
+        shape = (-1,) + (1,) * (x.ndim - 2) if self.axis == 1 else (-1,)
+        y = (xf - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        return y if self.dtype is None else y.to(self.dtype)
+
+    def _fused(self, x):
+        """The channels-first normalize through torch's ``batch_norm``, in
+        ``x``'s dtype (float32 for ``dtype`` None), the running statistics
+        updated unless ``update_stats`` is off in training (then copies of
+        them take the update: a recomputed forward saves what the first
+        saved)."""
+        mean, var = self.running_mean, self.running_var
+        if self.training and not self.update_stats:
+            mean, var = mean.clone(), var.clone()
+        y = F.batch_norm(
+            x if self.dtype is not None else x.float(), mean, var,
+            self.weight, self.bias, self.training, 1.0 - self.momentum,
+            self.epsilon)
         return y if self.dtype is None else y.to(self.dtype)
 
     def update_running(self, mean, var):
@@ -186,12 +222,14 @@ def l2_regularization(model: nn.Module, weight: float = L2_WEIGHT):
     the projection centers and variances, GPool's projection vector)
     carry no penalty, so the selection is by module type, not by parameter
     name."""
-    total = 0.0
+    weights = []
     for module in model.modules():
         if isinstance(module, (nn.Linear, nn.Conv2d)):
-            total = total + module.weight.square().sum()
+            weights.append(module.weight)
         elif isinstance(module, nn.LSTM):
-            for name, p in module.named_parameters():
-                if name.startswith("weight_"):
-                    total = total + p.square().sum()
-    return weight * total
+            weights += [p for name, p in module.named_parameters()
+                        if name.startswith("weight_")]
+    if not weights:
+        return 0.0
+    # one sum over every weight's squares: a few kernels, not three a leaf
+    return weight * torch.cat([w.reshape(-1) for w in weights]).square().sum()

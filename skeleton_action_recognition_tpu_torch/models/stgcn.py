@@ -367,8 +367,9 @@ def check_remat_policy(policy: str) -> str:
     return policy
 
 
-def remat_block(block: nn.Module, x, a, policy: str = "full"):
-    """``block(x, a)`` under ``torch.utils.checkpoint``: its activations are
+def remat_block(block: nn.Module, x, a=None, policy: str = "full"):
+    """``block(x, a)`` (``block(x)`` for ``a`` None: CTR-GCN's blocks, whose
+    topology is their own) under ``torch.utils.checkpoint``: its activations are
     dropped after the forward and recomputed in the backward (flax
     ``nn.remat``). ``policy`` "full" keeps the block's inputs alone; "dots"
     (``jax.checkpoint_policies.checkpoint_dots``) also keeps the outputs of
@@ -381,7 +382,7 @@ def remat_block(block: nn.Module, x, a, policy: str = "full"):
     def run(x, a):
         with frozen_stats(block, frozen=not first[0]):
             first[0] = False
-            return block(x, a)
+            return block(x) if a is None else block(x, a)
 
     options = {}
     if check_remat_policy(policy) == "dots":

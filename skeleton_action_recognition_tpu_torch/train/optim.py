@@ -38,6 +38,10 @@ class TFSGD(torch.optim.Optimizer):
     it by the current lr, which differs from this rule after every schedule
     boundary, so it is not used.
 
+    Each operation of the rule runs once over all the parameters with a
+    gradient (``torch._foreach_*``: a few kernels, not one a parameter),
+    each element rounded as the per-parameter expressions round it.
+
     ``learning_rate`` is a float or a function of the step count (e.g.
     :func:`..schedules.piecewise_constant`). The count lives in the first
     parameter group, so it is saved and restored with ``state_dict``. A
@@ -67,16 +71,24 @@ class TFSGD(torch.optim.Optimizer):
         lr = self.current_lr()
         for group in self.param_groups:
             m = group["momentum"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad
-                state = self.state[p]
-                if "velocity" not in state:
-                    state["velocity"] = torch.zeros_like(p)
-                v = state["velocity"]
-                v.copy_(m * v - lr * g)
-                p.add_(m * v - lr * g if group["nesterov"] else v)
+            params = [p for p in group["params"] if p.grad is not None]
+            if params:
+                vs = []
+                for p in params:
+                    state = self.state[p]
+                    if "velocity" not in state:
+                        state["velocity"] = torch.zeros_like(p)
+                    vs.append(state["velocity"])
+                # the rule above, one multi-tensor kernel an operation
+                lr_g = torch._foreach_mul([p.grad for p in params], lr)
+                torch._foreach_mul_(vs, m)
+                torch._foreach_sub_(vs, lr_g)
+                if group["nesterov"]:
+                    update = torch._foreach_mul(vs, m)
+                    torch._foreach_sub_(update, lr_g)
+                    torch._foreach_add_(params, update)
+                else:
+                    torch._foreach_add_(params, vs)
             group["count"] += 1
         return loss
 

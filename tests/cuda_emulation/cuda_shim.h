@@ -1,12 +1,14 @@
 // The CUDA constructs of the f32 spatial graph-conv kernels
 // (sgcn_tile_f32.cuh), the STFT kernels (stft_fft.cuh), the spline radar
-// kernels (radar_spline.cuh) and the block-tail kernels (block_tail.cuh),
+// kernels (radar_spline.cuh), the block-tail kernels (block_tail.cuh) and
+// CTR-GCN's aggregation kernels (ctrgc_tile.cuh),
 // emulated on the CPU: a block's threads are std::threads, __syncthreads a
 // barrier, dynamic shared memory a static array, blockIdx and threadIdx
 // thread-local. Force-included (-include) before a kernels' header; see
 // tests/test_torch_sgcn_emulated.py, tests/test_torch_stft_emulated.py,
-// tests/test_torch_radar_emulated.py and
-// tests/test_torch_block_tail_emulated.py.
+// tests/test_torch_radar_emulated.py,
+// tests/test_torch_block_tail_emulated.py and
+// tests/test_torch_ctrgc_emulated.py.
 #pragma once
 #include <algorithm>
 #include <barrier>

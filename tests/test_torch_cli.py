@@ -43,7 +43,7 @@ def test_other_models_are_refused(tmp_path):
     """A name with no ``models.<name>.Model`` raises before anything is set
     up, listing the models there are."""
     with pytest.raises(ValueError, match="names no model: the models are "
-                       "experimental, .*stgcn, stgin, stpgcn, stpgcnp"):
+                       "ctrgcn, experimental, .*stgcn, stgin, stpgcn, stpgcnp"):
         main_gnn.main(["--model", "nosuch", "--log-dir", str(tmp_path)],
                       device="cpu")
     assert os.listdir(tmp_path) == []

@@ -269,7 +269,7 @@ def test_spectrogram_model_runs_the_kernel_routes(monkeypatch):
       "y.pkl"], SystemExit, "exactly one of"),
     (["--data-path", "x.npy"], SystemExit, "requires --label-path"),
     (["--test-data-path", "d", "--model", "nosuch"], ValueError,
-     "'nosuch' names no model: the models are experimental"),
+     "'nosuch' names no model: the models are ctrgcn, experimental"),
     (["--test-data-path", "d", "--model", "gcn"], ValueError,
      "'gcn' names no model: .*stgcn, stgin, stpgcn, stpgcnp"),
     (["--data-path", "x.npy", "--label-path", "y.pkl", "--model",
