@@ -433,10 +433,12 @@ TRAIN_CONFIGS = {
 STEP_LAUNCHES = {
     "unfused": {},
     "fused": {"sgcn_fwd": 10, "sgcn_bwd": 10},
-    "sgcn_stats": {"sgcn_fwd_stats": 10, "sgcn_bwd": 10},
-    "fused_tconv": {"sgcn_fwd": 10, "sgcn_bwd": 10, "tconv_fwd": 8,
-                    "tconv_bwd": 8, "block_tail_fwd": 8,
-                    "block_tail_bwd": 8, "tconv_gue": 8},
+    "sgcn_stats": {"sgcn_fwd_stats": 10, "sgcn_bwd": 10, "tconv_gue": 10},
+    # the 8 stride-1 blocks take BN1's sums from #2's epilogue, and fold
+    # their cotangents with tconv_gue as BN2's are folded
+    "fused_tconv": {"sgcn_fwd_stats": 8, "sgcn_fwd": 2, "sgcn_bwd": 10,
+                    "tconv_fwd": 8, "tconv_bwd": 8, "block_tail_fwd": 8,
+                    "block_tail_bwd": 8, "tconv_gue": 16},
     "fused_min128": {"sgcn_fwd": 6, "sgcn_bwd": 6},
 }
 TRAIN_KERNELS = ("sgcn_fwd", "sgcn_fwd_stats", "sgcn_bwd", "tconv_fwd",
@@ -3762,7 +3764,7 @@ REMAT_CONFIGS = {
                      sgcn_stats=True, fused_tconv=True),
         {"sgcn_fwd_stats": 6, "sgcn_bwd": 6, "tconv_fwd": 4,
          "tconv_bwd": 4, "block_tail_fwd": 4, "block_tail_bwd": 4,
-         "tconv_gue": 4}),
+         "tconv_gue": 10}),
     "f32_fused_min128": (
         "f32", dict(fused_sgcn=True, fused_sgcn_min_channels=128),
         {"sgcn_fwd": 6, "sgcn_bwd": 6}),

@@ -16,9 +16,10 @@ statistics from the fused spatial conv's epilogue
 (:class:`StatsTemporalConv`), and ``fused_tconv`` runs BN1's normalize, the
 ReLU, the temporal conv and BN2's statistics in one kernel on the stride-1
 blocks, and BN2's normalize, the residual and the block's ReLU in another
-(:class:`FusedTemporalConv`). Both keep ``TemporalConv``'s state
-dict. In a process group every batch statistic, the kernels' sums
-included, is taken over the global batch
+(:class:`FusedTemporalConv`), which also takes BN1's statistics from
+that epilogue where the block's spatial conv is fused. Both keep
+``TemporalConv``'s state dict. In a process group every batch statistic,
+the kernels' sums included, is taken over the global batch
 (:func:`..parallel.distributed.global_means`).
 """
 
@@ -149,7 +150,11 @@ class FusedTemporalConv(nn.Module):
     pass; the JAX package's ``FusedTemporalConv``. It also ends the block:
     ``forward(x, res)`` returns ``relu(BN2(conv) + res)`` (``res=None``:
     no residual), in training through :func:`..ops.tconv.block_tail`'s
-    kernels. Its numerics follow the JAX module and block: BN1's variance
+    kernels. In training ``s`` and ``ss``, the f32 sums of ``x`` and of
+    its square per channel from the fused spatial conv's epilogue
+    (:func:`..ops.sgcn.fused_graph_conv_stats`), give BN1's batch
+    statistics; without them ``x`` is read again for them. Its numerics
+    follow the JAX module and block: BN1's variance
     is ``E[x^2] - E[x]^2`` without a clamp at 0, and the output is float32
     in both modes, whatever ``dtype``. In eval the chain is the plain
     folded affine, ReLU and conv (no kernel). The parameters are
@@ -170,7 +175,7 @@ class FusedTemporalConv(nn.Module):
         self.Conv_0 = _conv(in_channels, filters, kernel_size, 1, generator)
         self.BatchNorm_1 = BatchNorm(filters, dtype)
 
-    def forward(self, x, res=None):
+    def forward(self, x, res=None, s=None, ss=None):
         bn0, conv, bn1 = self.BatchNorm_0, self.Conv_0, self.BatchNorm_1
         cd = self.dtype or x.dtype
         if not self.training:
@@ -185,16 +190,19 @@ class FusedTemporalConv(nn.Module):
                                                bn1.running_var)
             y = u * scale2 + shift2
             return torch.relu(y if res is None else y + res)
-        xf = x.float()
-        axes = (0, 1, 2)
-        mean, sq = global_means(xf.mean(axes), (xf * xf).mean(axes),
-                                count=xf.numel() // xf.shape[-1])
+        n = x.numel() // x.shape[-1]
+        if s is None:
+            xf = x.float()
+            axes = (0, 1, 2)
+            mean, sq = xf.mean(axes), (xf * xf).mean(axes)
+        else:  # BN1's sums from the fused spatial conv's epilogue
+            mean, sq = s / n, ss / n
+        mean, sq = global_means(mean, sq, count=n)
         var = sq - mean * mean
         scale1, shift1 = bn0.folded_affine(mean, var)
         u, s2, ss2 = affine_relu_tconv(
             x.to(cd).contiguous(), scale1, shift1, conv.weight, conv.bias
         )
-        n = u.numel() // u.shape[-1]
         mean2, sq2 = global_means(s2 / n, ss2 / n, count=n)
         var2 = sq2 - mean2 * mean2
         bn0.update_running(mean, var)
@@ -257,7 +265,10 @@ class STConvBlock(nn.Module):
     stride; it takes precedence over ``fused_tconv``); else with
     ``fused_tconv`` at stride 1, :class:`FusedTemporalConv`, which takes
     the residual and applies the block's ReLU itself; else
-    :class:`TemporalConv`."""
+    :class:`TemporalConv`. In training a fused default spatial conv feeds
+    either of the first two BN1's sums from its epilogue
+    (``emit_stats``); the fused chain behind any other spatial module
+    reads its input again for them."""
 
     def __init__(
         self, in_channels: int, filters: int, stride: int = 1,
@@ -276,16 +287,21 @@ class STConvBlock(nn.Module):
                 in_channels, filters, 1, stride, generator
             )
             self.residual_bn = BatchNorm(filters, dtype)
-        self.use_stats = sgcn_stats and fused_sgcn and sgcn_factory is None
+        default_fused = fused_sgcn and sgcn_factory is None
+        use_stats = sgcn_stats and default_fused
+        # in training the fused spatial conv hands BN1's sums to either
+        # temporal module that takes them
+        self.emit_stats = default_fused and (
+            sgcn_stats or fused_tconv and stride == 1)
         if sgcn_factory is None:
             self.sgcn = GraphConvTD(
                 in_channels, filters, dtype=dtype, fused=fused_sgcn,
-                emit_stats=self.use_stats, generator=generator,
+                emit_stats=self.emit_stats, generator=generator,
             )
         else:
             self.sgcn = sgcn_factory(in_channels, filters, generator)
         spatial = self.sgcn.out_channels
-        if self.use_stats:
+        if use_stats:
             self.tgcn = StatsTemporalConv(
                 spatial, filters, stride=stride, dtype=dtype,
                 generator=generator,
@@ -310,11 +326,11 @@ class STConvBlock(nn.Module):
         else:
             res = x
         x = self.sgcn(x, a)
-        if isinstance(self.tgcn, FusedTemporalConv):
-            return self.tgcn(x, res if self.residual else None)
         # in training a stats-emitting spatial conv gives (out, s, ss)
-        x = self.tgcn(*x) if self.use_stats and self.training else self.tgcn(x)
-        return torch.relu(x + res)
+        x, *sums = x if self.emit_stats and self.training else (x,)
+        if isinstance(self.tgcn, FusedTemporalConv):
+            return self.tgcn(x, res if self.residual else None, *sums)
+        return torch.relu(self.tgcn(x, *sums) + res)
 
 
 class DataBatchNorm(nn.Module):

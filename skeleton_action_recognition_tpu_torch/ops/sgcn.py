@@ -41,6 +41,7 @@ from skeleton_action_recognition_tpu_torch.ops.build import (
     kernel_function,
     launch,
 )
+from skeleton_action_recognition_tpu_torch.ops.tconv import tconv_gue
 
 K_PARTS = 3
 NUM_JOINTS = 25
@@ -285,8 +286,10 @@ class FusedGraphConvStats(torch.autograd.Function):
     """The spatial graph conv with the BatchNorm-statistics epilogue:
     ``(out, s, ss)``. Saves ``x``, ``weight`` and ``out``; the backward
     folds the sums' cotangents into the output's, ``g_out + g_s + 2 out
-    g_ss`` in f32 (``ops/pallas/sgcn.py:315-323``), and runs the backward
-    kernel of :func:`fused_graph_conv_backward`."""
+    g_ss`` in f32 rounded to ``out``'s dtype (``ops/pallas/sgcn.py:
+    315-323``), through :func:`..tconv.tconv_gue`'s kernel (an absent
+    sum's cotangent is zero), and runs the backward kernel of
+    :func:`fused_graph_conv_backward`."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, a):
@@ -297,8 +300,10 @@ class FusedGraphConvStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_s, g_ss):
         x, weight, a, out = ctx.saved_tensors
-        gg = g_out.float() + g_s + 2.0 * out.float() * g_ss
-        dx, dw, db = fused_graph_conv_backward(x, weight, a, gg.contiguous())
+        g_s, g_ss = (out.new_zeros(out.shape[-1], dtype=torch.float32)
+                     if g is None else g for g in (g_s, g_ss))
+        gg = tconv_gue(g_out, out, g_s, g_ss)
+        dx, dw, db = fused_graph_conv_backward(x, weight, a, gg)
         return dx, dw, db, None
 
 

@@ -132,6 +132,32 @@ def test_routing_follows_the_jax_block():
     assert _tgcn_types(sgcn_stats=True) == [stock] * 10
 
 
+def test_fused_spatial_conv_feeds_the_sums_to_the_chains_that_take_them():
+    """A block's spatial conv emits BN1's sums (in training) where it is
+    the fused default one and its temporal module takes them: every
+    ``sgcn_stats`` block, and the ``fused_tconv`` stride-1 blocks whose
+    spatial conv is fused; never under ``fused_sgcn_min_channels``, with
+    the unfused spatial conv or with another spatial module."""
+    def emitted(**kwargs):
+        model = stgcn.Model(num_classes=6, **kwargs)
+        return [getattr(model.backbone, f"block_{i}").emit_stats
+                for i in range(len(stgcn.BLOCK_PLAN))]
+
+    chain = [True] * 4 + [False, True, True, False, True, True]
+    assert emitted(fused_sgcn=True, fused_tconv=True) == chain
+    assert emitted(fused_sgcn=True, fused_tconv=True,
+                   fused_sgcn_min_channels=128) == [False] * 4 + chain[4:]
+    assert emitted(fused_sgcn=True, sgcn_stats=True,
+                   fused_tconv=True) == [True] * 10
+    assert emitted(fused_tconv=True) == [False] * 10
+    assert emitted(fused_sgcn=True) == [False] * 10
+    gin = stgcn.STConvBlock(
+        8, 8, fused_sgcn=True, fused_tconv=True,
+        sgcn_factory=lambda c_in, c, g: stgcn.GraphConvTD(c_in, c))
+    assert isinstance(gin.tgcn, stgcn.FusedTemporalConv)
+    assert not gin.emit_stats
+
+
 def test_stock_checkpoint_loads_under_every_option():
     """The options keep the stock variable tree: a stock JAX model's
     variables load strictly, and the port's state dict maps back onto
@@ -148,7 +174,14 @@ def test_stock_checkpoint_loads_under_every_option():
         assert jax.tree_util.tree_structure(back) == stock_tree
 
 
-@pytest.mark.parametrize("option", list(OPTIONS))
+# the options and fused_tconv behind the fused spatial conv, whose
+# epilogue gives BN1's sums to the fused chain (its stats route rerun in
+# the recompute)
+REMAT_OPTIONS = {**OPTIONS,
+                 "fused_sgcn_tconv": dict(fused_sgcn=True, fused_tconv=True)}
+
+
+@pytest.mark.parametrize("option", list(REMAT_OPTIONS))
 def test_remat_gives_the_same_step_and_updates_statistics_once(option):
     """remat=True and remat=False: the same loss, gradients and running
     statistics, equal to those of one train-mode forward: the recompute
@@ -158,7 +191,7 @@ def test_remat_gives_the_same_step_and_updates_statistics_once(option):
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     results = {}
     for remat in (False, True):
-        port = _port(variables, **OPTIONS[option])
+        port = _port(variables, **REMAT_OPTIONS[option])
         port.backbone.remat = remat
         loss = losses.total_loss(port.train()(xt), yt, port, 2)
         loss.backward()
@@ -167,7 +200,7 @@ def test_remat_gives_the_same_step_and_updates_statistics_once(option):
             {n: p.grad.clone() for n, p in port.named_parameters()},
             {n: b.clone() for n, b in port.named_buffers()},
         )
-    once = _port(variables, **OPTIONS[option]).train()
+    once = _port(variables, **REMAT_OPTIONS[option]).train()
     with torch.no_grad():
         once(xt)
     assert results[True][0] == pytest.approx(results[False][0], rel=1e-6)

@@ -48,6 +48,9 @@ STGCN_OPTIONS = {
     "fused_sgcn": dict(fused_sgcn=True, remat=False),
     "sgcn_stats": dict(fused_sgcn=True, sgcn_stats=True, remat=False),
     "fused_tconv": dict(fused_tconv=True, remat=False),
+    # the fused chain fed BN1's sums by the fused spatial conv's epilogue
+    "fused_sgcn_tconv": dict(fused_sgcn=True, fused_tconv=True,
+                             remat=False),
 }
 
 
@@ -85,7 +88,8 @@ def test_two_ranks_stgcn_step_match_jax_one_device(tmp_path, option):
     assert_state_close(results[0]["state"], want, PARAM_ATOL)
 
 
-@pytest.mark.parametrize("option", ["stock", "sgcn_stats", "fused_tconv"])
+@pytest.mark.parametrize("option", ["stock", "sgcn_stats", "fused_tconv",
+                                    "fused_sgcn_tconv"])
 def test_world_size_one_is_the_step_without_a_group(tmp_path, option):
     """One rank in a process group (the global moments, the gradient and
     metric sums all taken) gives the step without a group bit for bit:

@@ -7,6 +7,8 @@ stats kernel is held against its plain version on the card
 (``test_torch_sgcn_gpu.py`` and ``chip_smoke.py``).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,6 +99,36 @@ def test_stats_reference_sums_the_rounded_output(dtype):
     of = out.float()
     assert torch.equal(s, of.sum((0, 1, 2)))
     assert torch.equal(ss, (of * of).sum((0, 1, 2)))
+
+
+@pytest.mark.parametrize("absent", ["none", "g_s", "g_ss", "both"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_stats_backward_is_the_eager_fold_it_replaces(dtype, absent):
+    """``FusedGraphConvStats.backward`` folds the sums' cotangents through
+    ``tconv_gue``: its ``dx``, ``dW`` and ``db`` equal, bit for bit, those
+    of the eager f32 fold ``g_out.float() + g_s + 2.0 * out.float() *
+    g_ss`` handed to the backward (which rounds it to ``x``'s dtype); a
+    cotangent autograd hands as None counts as zeros."""
+    x, kernel, bias = _inputs(6)
+    xt = torch.tensor(x).to(dtype)
+    weight, a = torch.tensor(kernel.T.copy()), torch.from_numpy(A)
+    out, _, _ = sgcn.graph_conv_stats_reference(xt, weight,
+                                                torch.tensor(bias), a)
+    g = torch.Generator().manual_seed(7)
+    g_out = torch.randn(out.shape, generator=g).to(dtype)
+    g_s, g_ss = (torch.randn(out.shape[-1], generator=g) for _ in range(2))
+    passed = (None if absent in ("g_s", "both") else g_s,
+              None if absent in ("g_ss", "both") else g_ss)
+    zero = torch.zeros(out.shape[-1])
+    folded = (g_out.float() + (zero if passed[0] is None else g_s)
+              + 2.0 * out.float() * (zero if passed[1] is None else g_ss))
+    want = sgcn.fused_graph_conv_backward(xt, weight, a, folded)
+    ctx = types.SimpleNamespace(saved_tensors=(xt, weight, a, out))
+    got = sgcn.FusedGraphConvStats.backward(ctx, g_out, *passed)
+    assert got[3] is None
+    for name, p, q in zip(("dx", "dW", "db"), got, want):
+        assert p.dtype == q.dtype and torch.equal(p, q), name
 
 
 def test_graph_conv_emits_stats_in_training_only():

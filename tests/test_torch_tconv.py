@@ -364,3 +364,66 @@ def test_fused_st_conv_block_matches_jax(c_in, residual):
             # of the largest |gradient| of the tensor
             assert (np.abs(got_g - want_g).max()
                     <= MODULE_TOL["rtol"] * np.abs(want_g).max()), name
+
+
+def _block_run(residual, dtype, emit_stats, monkeypatch):
+    """One training forward and backward of a fused-spatial ``fused_tconv``
+    ``STConvBlock`` (8 -> 8 with the identity residual, 4 -> 8 without
+    one): output, input and parameter gradients, running statistics, and
+    how many times the spatial conv's stats route ran. ``emit_stats``
+    False withholds BN1's sums, so the chain reads its input again."""
+    from skeleton_action_recognition_tpu_torch.ops import sgcn
+
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return stats_reference(*args)
+
+    stats_reference = sgcn.graph_conv_stats_reference
+    monkeypatch.setattr(sgcn, "graph_conv_stats_reference", counted)
+    c_in = 8 if residual else 4
+    block = stgcn.STConvBlock(
+        c_in, 8, residual=residual, dtype=dtype, fused_sgcn=True,
+        fused_tconv=True, generator=torch.Generator().manual_seed(14))
+    assert isinstance(block.tgcn, stgcn.FusedTemporalConv)
+    assert block.emit_stats and block.sgcn.emit_stats
+    block.emit_stats = block.sgcn.emit_stats = emit_stats
+    x = torch.from_numpy(_module_input(15, c=c_in)).requires_grad_()
+    out = block.train()(x, torch.from_numpy(stgcn.spatial_adjacency()))
+    out.sin().sum().backward()
+    return (out.detach(), x.grad,
+            {n: p.grad for n, p in block.named_parameters()},
+            {n: b.clone() for n, b in block.named_buffers()}, len(calls))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("residual", [True, False], ids=["identity", "none"])
+def test_fused_block_takes_bn1_moments_from_the_spatial_epilogue(
+        residual, dtype, monkeypatch):
+    """In training a fused-spatial ``fused_tconv`` block feeds BN1 the
+    spatial conv's sums (its stats route runs once): the output, every
+    gradient and the running statistics equal, within MODULE_TOL, those of
+    the same block with the sums withheld (BN1's moments taken from its
+    input, as before the sums were passed). In bf16 the gradients below
+    the spatial conv's output (of its weights and of the input) are held
+    to two bf16 roundings of their largest element instead: there the
+    sums' cotangents are folded in f32 and rounded once, where the
+    withheld route rounded the moments' cotangent to bf16 and added it in
+    bf16."""
+    got = _block_run(residual, dtype, True, monkeypatch)
+    want = _block_run(residual, dtype, False, monkeypatch)
+    assert (got[4], want[4]) == (1, 0)
+    assert got[0].dtype == torch.float32
+    torch.testing.assert_close(got[0], want[0], **MODULE_TOL)
+    below = {"x"} | {n for n in want[2] if n.startswith("sgcn.")}
+    pairs = [("x", got[1], want[1])] + [
+        (n, got[i][n], w) for i in (2, 3) for n, w in want[i].items()]
+    assert got[2].keys() == want[2].keys()
+    assert got[3].keys() == want[3].keys()
+    for name, p, q in pairs:
+        if dtype == torch.bfloat16 and name in below:
+            assert (p - q).abs().max() <= 2.0 ** -7 * q.abs().max(), name
+        else:
+            torch.testing.assert_close(p, q, **MODULE_TOL, msg=name)
