@@ -3749,7 +3749,7 @@ def phase_ddp(device, request):
 
 
 # ---------------------------------------------------------------------------
-# remat: the ST-GCN's remat policies (models/stgcn.py::remat_block) at the
+# remat: the ST-GCN's remat policies (models/layers.py::remat_block) at the
 # training shape
 
 # (dtype, options, launches of one step with remat off): the CLI's default
@@ -3782,7 +3782,7 @@ REMAT_TOL = {"f32": 1e-5, "bf16": 1e-3}
 
 
 class ProductCounter(TorchDispatchMode):
-    """Counts the matrix products (``stgcn.SAVED_PRODUCTS``: what F.linear
+    """Counts the matrix products (``layers.SAVED_PRODUCTS``: what F.linear
     and einsum lower to) that reach the dispatcher while it is on. Entered
     around a backward it sits below a selective-checkpoint context, which
     answers the products it keeps without running them: what it counts
@@ -3793,7 +3793,7 @@ class ProductCounter(TorchDispatchMode):
         self.count = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.count += func in stgcn.SAVED_PRODUCTS
+        self.count += func in layers.SAVED_PRODUCTS
         return func(*args, **(kwargs or {}))
 
 

@@ -60,8 +60,8 @@ from skeleton_action_recognition_tpu_torch.models.layers import (
     TORCH_MOMENTUM,
     BatchNorm,
     init_layer,
+    remat_block,
 )
-from skeleton_action_recognition_tpu_torch.models.stgcn import remat_block
 from skeleton_action_recognition_tpu_torch.ops.ctrgc import channel_aggregate
 
 IN_CHANNELS = 3  # x, y, z of each joint

@@ -51,17 +51,12 @@ import torch.nn.functional as F
 
 from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import Graph
 from skeleton_action_recognition_tpu_torch.models import stgcn
+# the stock block plan, which the fold is written for (the JAX predictor's)
+from skeleton_action_recognition_tpu_torch.models.stgcn import BLOCK_PLAN
 from skeleton_action_recognition_tpu_torch.parallel.sharding import (
     resolve_device,
 )
 
-# (filters, temporal stride, residual) per block: the plan the fold is
-# written for, the JAX predictor's ``BLOCK_PLAN``
-BLOCK_PLAN = (
-    (64, 1, False), (64, 1, True), (64, 1, True), (64, 1, True),
-    (128, 2, True), (128, 1, True), (128, 1, True),
-    (256, 2, True), (256, 1, True), (256, 1, True),
-)
 # ``torch._int_mm`` on CUDA takes more than 16 rows and a contraction and
 # output width that are multiples of 8; the rows are padded to a multiple
 # of 8 as well

@@ -53,9 +53,10 @@ class GraphConvTD(nn.Module):
 
     ``emit_stats=True`` (with ``fused``): in training the layer returns
     ``(out, s, ss)``, the output and its f32 per-channel sums of ``out``
-    and ``out**2`` from the kernel's epilogue, for a BatchNorm fed by them
-    (:class:`..stgcn.StatsTemporalConv`); in eval it returns ``out`` alone,
-    through the plain fused kernel.
+    and ``out**2`` from the kernel's epilogue, for the BatchNorm of a
+    temporal chain that takes them (``TemporalConv.takes_sums`` in
+    ``stgcn.py``, whose block sets the flag from the chain it routes to);
+    in eval it returns ``out`` alone, through the plain fused kernel.
     """
 
     def __init__(

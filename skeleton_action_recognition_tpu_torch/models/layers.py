@@ -1,5 +1,6 @@
 """Shared building blocks: the conv initializer, Keras-semantics BatchNorm,
-the pointwise MLP of the GIN layers and the L2 penalty.
+the pointwise MLP of the GIN layers, the blocks' rematerialization and the
+L2 penalty.
 
 Counterpart of ``skeleton_action_recognition_tpu/models/layers.py``.
 Activations are channels-last ``(N, T, V, C)`` throughout the GNN stack.
@@ -8,13 +9,17 @@ Activations are channels-last ``(N, T, V, C)`` throughout the GNN stack.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Sequence
 
 import torch
 import torch.nn as nn
-
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from skeleton_action_recognition_tpu_torch.parallel.distributed import (
     active,
@@ -27,6 +32,17 @@ MOMENTUM = 0.99
 TORCH_EPSILON = 1e-5
 TORCH_MOMENTUM = 0.9
 L2_WEIGHT = 1e-4
+# what the remat policies keep of a block's forward for its backward:
+# "full" its inputs alone, "dots" also the outputs of the matrix products
+# that F.linear and einsum lower to (jax.checkpoint_policies.checkpoint_dots
+# keeps dot_general's). Convolutions, BatchNorm, ReLU and the CUDA kernels
+# (launched outside the dispatcher) are recomputed under both.
+REMAT_POLICIES = ("full", "dots")
+SAVED_PRODUCTS = (
+    torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default,
+)
 # standard deviation of the unit normal truncated to [-2, 2]
 _TRUNCATED_STD = 0.87962566103423978
 
@@ -61,6 +77,11 @@ def init_layer(layer, generator=None):
     conv_init_(layer.weight, generator)
     nn.init.zeros_(layer.bias)
     return layer
+
+
+def moments(x, axes):
+    """The means of ``x`` and of its square over ``axes``."""
+    return x.mean(axes), (x * x).mean(axes)
 
 
 class BatchNorm(nn.Module):
@@ -117,10 +138,8 @@ class BatchNorm(nn.Module):
         if self.training:
             axis = self.axis % x.ndim
             axes = tuple(i for i in range(x.ndim) if i != axis)
-            mean, sq = global_means(xf.mean(axes), (xf * xf).mean(axes),
-                                    count=xf.numel() // xf.shape[axis])
-            var = torch.clamp(sq - mean * mean, min=0.0)
-            self.update_running(mean, var)
+            mean, var = self.stats_from_moments(
+                *moments(xf, axes), xf.numel() // xf.shape[axis])
         else:
             mean, var = self.running_mean, self.running_var
         scale = torch.rsqrt(var + self.epsilon) * self.weight
@@ -143,13 +162,23 @@ class BatchNorm(nn.Module):
             self.epsilon)
         return y if self.dtype is None else y.to(self.dtype)
 
+    def stats_from_moments(self, mean, sq, count: int, clamp: bool = True):
+        """The batch's ``(mean, var)`` from this rank's means of ``x`` and
+        ``x**2`` per channel over its ``count`` rows: averaged over every
+        rank (:func:`..parallel.distributed.global_means`), ``var = E[x^2]
+        - E[x]^2`` clamped at 0 unless ``clamp`` is off (the JAX fused
+        chain's), and folded into the running statistics."""
+        mean, sq = global_means(mean, sq, count=count)
+        var = sq - mean * mean
+        if clamp:
+            var = torch.clamp(var, min=0.0)
+        self.update_running(mean, var)
+        return mean, var
+
     def update_running(self, mean, var):
         """Fold a batch's ``mean`` and ``var`` into the running statistics,
         ``momentum * running + (1 - momentum) * batch``, unless
-        ``update_stats`` is off. Modules that take the batch statistics
-        themselves (the fused temporal chains of ``stgcn.py``) update their
-        BatchNorms through this, so that :func:`frozen_stats` holds for
-        them too."""
+        ``update_stats`` is off."""
         if not self.update_stats:
             return
         with torch.no_grad():
@@ -201,7 +230,8 @@ def frozen_stats(module: nn.Module, frozen: bool = True):
     keeps the statistics of the first run, and so does the port by freezing
     them for the second. Modules that take their BatchNorms' batch
     statistics themselves update them through
-    :meth:`BatchNorm.update_running`, so the freeze holds for them too."""
+    :meth:`BatchNorm.stats_from_moments`, so the freeze holds for them
+    too."""
     norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
     before = [m.update_stats for m in norms]
     for m in norms:
@@ -211,6 +241,39 @@ def frozen_stats(module: nn.Module, frozen: bool = True):
     finally:
         for m, flag in zip(norms, before):
             m.update_stats = flag
+
+
+def check_remat_policy(policy: str) -> str:
+    """``policy`` if it is one of ``REMAT_POLICIES``, else ``ValueError``
+    (the JAX model takes any other name as "full")."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {policy!r}")
+    return policy
+
+
+def remat_block(block: nn.Module, x, a=None, policy: str = "full"):
+    """``block(x, a)`` (``block(x)`` for ``a`` None: CTR-GCN's blocks, whose
+    topology is their own) under ``torch.utils.checkpoint``: its activations are
+    dropped after the forward and recomputed in the backward (flax
+    ``nn.remat``). ``policy`` "full" keeps the block's inputs alone; "dots"
+    (``jax.checkpoint_policies.checkpoint_dots``) also keeps the outputs of
+    ``SAVED_PRODUCTS``, through a selective-checkpoint context, so that the
+    backward recomputes no matrix product. The recompute leaves the
+    BatchNorm running statistics as the first run set them, as flax
+    does."""
+    first = [True]
+
+    def run(x, a):
+        with frozen_stats(block, frozen=not first[0]):
+            first[0] = False
+            return block(x) if a is None else block(x, a)
+
+    options = {}
+    if check_remat_policy(policy) == "dots":
+        options["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(SAVED_PRODUCTS))
+    return checkpoint(run, x, a, use_reentrant=False, **options)
 
 
 def l2_regularization(model: nn.Module, weight: float = L2_WEIGHT):

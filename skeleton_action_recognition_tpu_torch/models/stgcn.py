@@ -25,15 +25,9 @@ the kernels' sums included, is taken over the global batch
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import (
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
 
 from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
     NUM_JOINTS,
@@ -42,16 +36,15 @@ from skeleton_action_recognition_tpu_torch.graphs.ntu_rgb_d import (
 from skeleton_action_recognition_tpu_torch.models.gcn import GraphConvTD
 from skeleton_action_recognition_tpu_torch.models.layers import (
     BatchNorm,
-    frozen_stats,
+    check_remat_policy,
     init_layer,
+    moments,
+    remat_block,
 )
 from skeleton_action_recognition_tpu_torch.ops.tconv import (
     TAPS,
     affine_relu_tconv,
     block_tail,
-)
-from skeleton_action_recognition_tpu_torch.parallel.distributed import (
-    global_means,
 )
 
 IN_CHANNELS = 3  # x, y, z of each joint
@@ -67,19 +60,6 @@ BLOCK_PLAN = (
     (256, 2, True),
     (256, 1, True),
     (256, 1, True),
-)
-
-
-# what the remat policies keep of a block's forward for its backward:
-# "full" its inputs alone, "dots" also the outputs of the matrix products
-# that F.linear and einsum lower to (jax.checkpoint_policies.checkpoint_dots
-# keeps dot_general's). Convolutions, BatchNorm, ReLU and the CUDA kernels
-# (launched outside the dispatcher) are recomputed under both.
-REMAT_POLICIES = ("full", "dots")
-SAVED_PRODUCTS = (
-    torch.ops.aten.mm.default,
-    torch.ops.aten.addmm.default,
-    torch.ops.aten.bmm.default,
 )
 
 
@@ -122,10 +102,15 @@ def _conv(in_channels, filters, kernel_size, stride, generator):
 
 
 class TemporalConv(nn.Module):
-    """BN -> ReLU -> Conv[kt, 1] (stride t, SAME) -> BN."""
+    """BN -> ReLU -> Conv[kt, 1] (stride t, SAME) -> BN. Its parameters,
+    built here alone, are every temporal chain's; ``takes_sums`` says
+    whether a chain takes BN1's sums from the fused spatial conv's
+    epilogue in training."""
+
+    takes_sums = False
 
     def __init__(
-        self, in_channels: int, filters: int, kernel_size: int = 9,
+        self, in_channels: int, filters: int, kernel_size: int = TAPS,
         stride: int = 1, dtype=None, generator=None,
     ):
         super().__init__()
@@ -141,15 +126,44 @@ class TemporalConv(nn.Module):
         x = temporal_conv(self.Conv_0, x, self.dtype)
         return self.BatchNorm_1(x)
 
+    def end_block(self, x, res=None, *sums):
+        """The block's output, ``relu(chain(x) + res)`` (``res`` None: no
+        residual), from its spatial conv's output ``x`` and BN1's sums
+        where that conv gives them."""
+        return torch.relu(self(x, *sums) + (0.0 if res is None else res))
 
-class FusedTemporalConv(nn.Module):
+
+class StatsTemporalConv(TemporalConv):
+    """:class:`TemporalConv` fed BN1's batch statistics, the f32 sums
+    ``s`` and ``ss`` of its input and of its square per channel, by the
+    spatial conv's epilogue (:func:`..ops.sgcn.fused_graph_conv_stats`),
+    instead of reading the activation again; the JAX package's
+    ``StatsTemporalConv``. BN1's variance is clamped at 0, as
+    :class:`..layers.BatchNorm` does. In eval it uses the running
+    statistics and takes no sums."""
+
+    takes_sums = True
+
+    def forward(self, x, s=None, ss=None):
+        bn0 = self.BatchNorm_0
+        if self.training:
+            n = x.numel() // x.shape[-1]
+            mean, var = bn0.stats_from_moments(s / n, ss / n, n)
+        else:
+            mean, var = bn0.running_mean, bn0.running_var
+        scale1, shift1 = bn0.folded_affine(mean, var)
+        h = torch.relu(x.float() * scale1 + shift1).to(self.dtype or x.dtype)
+        return self.BatchNorm_1(temporal_conv(self.Conv_0, h, self.dtype))
+
+
+class FusedTemporalConv(TemporalConv):
     """:class:`TemporalConv` at stride 1 whose training-mode chain runs
     through the fused kernels (:func:`..ops.tconv.affine_relu_tconv`):
     BN1's normalize, folded into a per-channel affine from the batch's
     statistics, the ReLU, the 9-tap conv and BN2's batch statistics in one
-    pass; the JAX package's ``FusedTemporalConv``. It also ends the block:
-    ``forward(x, res)`` returns ``relu(BN2(conv) + res)`` (``res=None``:
-    no residual), in training through :func:`..ops.tconv.block_tail`'s
+    pass; the JAX package's ``FusedTemporalConv``. Its ``forward(x, res)``
+    ends the block, ``relu(BN2(conv) + res)`` (``res=None``: no
+    residual), in training through :func:`..ops.tconv.block_tail`'s
     kernels. In training ``s`` and ``ss``, the f32 sums of ``x`` and of
     its square per channel from the fused spatial conv's epilogue
     (:func:`..ops.sgcn.fused_graph_conv_stats`), give BN1's batch
@@ -157,23 +171,22 @@ class FusedTemporalConv(nn.Module):
     follow the JAX module and block: BN1's variance
     is ``E[x^2] - E[x]^2`` without a clamp at 0, and the output is float32
     in both modes, whatever ``dtype``. In eval the chain is the plain
-    folded affine, ReLU and conv (no kernel). The parameters are
-    :class:`TemporalConv`'s."""
+    folded affine, ReLU and conv (no kernel)."""
+
+    takes_sums = True
 
     def __init__(
         self, in_channels: int, filters: int, kernel_size: int = TAPS,
-        dtype=None, generator=None,
+        stride: int = 1, dtype=None, generator=None,
     ):
-        super().__init__()
-        if in_channels != filters or kernel_size != TAPS:
+        if in_channels != filters or kernel_size != TAPS or stride != 1:
             raise ValueError(
-                f"the fused chain takes C -> C channels over {TAPS} taps, "
-                f"got {in_channels} -> {filters} over {kernel_size}"
+                f"the fused chain takes C -> C channels over {TAPS} taps "
+                f"at stride 1, got {in_channels} -> {filters} over "
+                f"{kernel_size} at stride {stride}"
             )
-        self.dtype = dtype
-        self.BatchNorm_0 = BatchNorm(in_channels, dtype)
-        self.Conv_0 = _conv(in_channels, filters, kernel_size, 1, generator)
-        self.BatchNorm_1 = BatchNorm(filters, dtype)
+        super().__init__(in_channels, filters, kernel_size, stride, dtype,
+                         generator)
 
     def forward(self, x, res=None, s=None, ss=None):
         bn0, conv, bn1 = self.BatchNorm_0, self.Conv_0, self.BatchNorm_1
@@ -192,60 +205,37 @@ class FusedTemporalConv(nn.Module):
             return torch.relu(y if res is None else y + res)
         n = x.numel() // x.shape[-1]
         if s is None:
-            xf = x.float()
-            axes = (0, 1, 2)
-            mean, sq = xf.mean(axes), (xf * xf).mean(axes)
+            mean, sq = moments(x.float(), (0, 1, 2))
         else:  # BN1's sums from the fused spatial conv's epilogue
             mean, sq = s / n, ss / n
-        mean, sq = global_means(mean, sq, count=n)
-        var = sq - mean * mean
+        # each BatchNorm's moments in a collective of their own, as in JAX
+        mean, var = bn0.stats_from_moments(mean, sq, n, clamp=False)
         scale1, shift1 = bn0.folded_affine(mean, var)
         u, s2, ss2 = affine_relu_tconv(
             x.to(cd).contiguous(), scale1, shift1, conv.weight, conv.bias
         )
-        mean2, sq2 = global_means(s2 / n, ss2 / n, count=n)
-        var2 = sq2 - mean2 * mean2
-        bn0.update_running(mean, var)
-        bn1.update_running(mean2, var2)
+        mean2, var2 = bn1.stats_from_moments(s2 / n, ss2 / n, n,
+                                             clamp=False)
         scale2, shift2 = bn1.folded_affine(mean2, var2)
         return block_tail(u, scale2, shift2,
                           None if res is None else res.contiguous())
 
+    def end_block(self, x, res=None, *sums):
+        return self(x, res, *sums)
 
-class StatsTemporalConv(nn.Module):
-    """:class:`TemporalConv` fed BN1's batch statistics, the f32 sums
-    ``s`` and ``ss`` of its input and of its square per channel, by the
-    spatial conv's epilogue (:func:`..ops.sgcn.fused_graph_conv_stats`),
-    instead of reading the activation again; the JAX package's
-    ``StatsTemporalConv``. BN1's variance is clamped at 0, as
-    :class:`..layers.BatchNorm` does. In eval it uses the running
-    statistics and takes no sums. The parameters are
-    :class:`TemporalConv`'s."""
 
-    def __init__(
-        self, in_channels: int, filters: int, kernel_size: int = TAPS,
-        stride: int = 1, dtype=None, generator=None,
-    ):
-        super().__init__()
-        self.dtype = dtype
-        self.BatchNorm_0 = BatchNorm(in_channels, dtype)
-        self.Conv_0 = _conv(
-            in_channels, filters, kernel_size, stride, generator
-        )
-        self.BatchNorm_1 = BatchNorm(filters, dtype)
-
-    def forward(self, x, s=None, ss=None):
-        bn0 = self.BatchNorm_0
-        if self.training:
-            n = x.numel() // x.shape[-1]
-            mean, sq = global_means(s / n, ss / n, count=n)
-            var = torch.clamp(sq - mean * mean, min=0.0)
-            bn0.update_running(mean, var)
-        else:
-            mean, var = bn0.running_mean, bn0.running_var
-        scale1, shift1 = bn0.folded_affine(mean, var)
-        h = torch.relu(x.float() * scale1 + shift1).to(self.dtype or x.dtype)
-        return self.BatchNorm_1(temporal_conv(self.Conv_0, h, self.dtype))
+def temporal_route(default_fused: bool, sgcn_stats: bool,
+                   fused_tconv: bool, stride: int) -> type:
+    """The temporal chain of a block, as the JAX block routes it:
+    :class:`StatsTemporalConv` with ``sgcn_stats`` behind the fused
+    default spatial conv (``default_fused``; at either stride, ahead of
+    ``fused_tconv``); else :class:`FusedTemporalConv` with ``fused_tconv``
+    at stride 1; else :class:`TemporalConv`."""
+    if sgcn_stats and default_fused:
+        return StatsTemporalConv
+    if fused_tconv and stride == 1:
+        return FusedTemporalConv
+    return TemporalConv
 
 
 class STConvBlock(nn.Module):
@@ -260,15 +250,11 @@ class STConvBlock(nn.Module):
     options. The temporal conv takes the spatial module's
     ``out_channels``, which for ST-GIN is half the block's width.
 
-    The temporal chain, as the JAX block routes it: with ``sgcn_stats`` and
-    a fused default spatial conv, :class:`StatsTemporalConv` (at either
-    stride; it takes precedence over ``fused_tconv``); else with
-    ``fused_tconv`` at stride 1, :class:`FusedTemporalConv`, which takes
-    the residual and applies the block's ReLU itself; else
-    :class:`TemporalConv`. In training a fused default spatial conv feeds
-    either of the first two BN1's sums from its epilogue
-    (``emit_stats``); the fused chain behind any other spatial module
-    reads its input again for them."""
+    :func:`temporal_route` picks the temporal chain, which ends the block
+    (:meth:`TemporalConv.end_block`). In training a fused default spatial
+    conv feeds BN1's sums from its epilogue (``emit_stats``) to a chain
+    that takes them; the fused chain behind any other spatial module reads
+    its input again for them."""
 
     def __init__(
         self, in_channels: int, filters: int, stride: int = 1,
@@ -288,11 +274,9 @@ class STConvBlock(nn.Module):
             )
             self.residual_bn = BatchNorm(filters, dtype)
         default_fused = fused_sgcn and sgcn_factory is None
-        use_stats = sgcn_stats and default_fused
-        # in training the fused spatial conv hands BN1's sums to either
-        # temporal module that takes them
-        self.emit_stats = default_fused and (
-            sgcn_stats or fused_tconv and stride == 1)
+        chain = temporal_route(default_fused, sgcn_stats, fused_tconv,
+                               stride)
+        self.emit_stats = default_fused and chain.takes_sums
         if sgcn_factory is None:
             self.sgcn = GraphConvTD(
                 in_channels, filters, dtype=dtype, fused=fused_sgcn,
@@ -300,25 +284,12 @@ class STConvBlock(nn.Module):
             )
         else:
             self.sgcn = sgcn_factory(in_channels, filters, generator)
-        spatial = self.sgcn.out_channels
-        if use_stats:
-            self.tgcn = StatsTemporalConv(
-                spatial, filters, stride=stride, dtype=dtype,
-                generator=generator,
-            )
-        elif fused_tconv and stride == 1:
-            self.tgcn = FusedTemporalConv(
-                spatial, filters, dtype=dtype, generator=generator,
-            )
-        else:
-            self.tgcn = TemporalConv(
-                spatial, filters, stride=stride, dtype=dtype,
-                generator=generator,
-            )
+        self.tgcn = chain(self.sgcn.out_channels, filters, stride=stride,
+                          dtype=dtype, generator=generator)
 
     def forward(self, x, a):
         if not self.residual:
-            res = 0.0
+            res = None
         elif self.project:
             res = self.residual_bn(
                 temporal_conv(self.residual_conv, x, self.dtype)
@@ -328,9 +299,7 @@ class STConvBlock(nn.Module):
         x = self.sgcn(x, a)
         # in training a stats-emitting spatial conv gives (out, s, ss)
         x, *sums = x if self.emit_stats and self.training else (x,)
-        if isinstance(self.tgcn, FusedTemporalConv):
-            return self.tgcn(x, res if self.residual else None, *sums)
-        return torch.relu(self.tgcn(x, *sums) + res)
+        return self.tgcn.end_block(x, res, *sums)
 
 
 class DataBatchNorm(nn.Module):
@@ -372,39 +341,6 @@ def adjacency(module: nn.Module):
     """The adjacency :func:`register_adjacency` gave ``module``."""
     a = getattr(module, "adjacency_matrix", None)
     return module.adjacency if a is None else a
-
-
-def check_remat_policy(policy: str) -> str:
-    """``policy`` if it is one of ``REMAT_POLICIES``, else ``ValueError``
-    (the JAX model takes any other name as "full")."""
-    if policy not in REMAT_POLICIES:
-        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
-                         f"got {policy!r}")
-    return policy
-
-
-def remat_block(block: nn.Module, x, a=None, policy: str = "full"):
-    """``block(x, a)`` (``block(x)`` for ``a`` None: CTR-GCN's blocks, whose
-    topology is their own) under ``torch.utils.checkpoint``: its activations are
-    dropped after the forward and recomputed in the backward (flax
-    ``nn.remat``). ``policy`` "full" keeps the block's inputs alone; "dots"
-    (``jax.checkpoint_policies.checkpoint_dots``) also keeps the outputs of
-    ``SAVED_PRODUCTS``, through a selective-checkpoint context, so that the
-    backward recomputes no matrix product. The recompute leaves the
-    BatchNorm running statistics as the first run set them, as flax
-    does."""
-    first = [True]
-
-    def run(x, a):
-        with frozen_stats(block, frozen=not first[0]):
-            first[0] = False
-            return block(x) if a is None else block(x, a)
-
-    options = {}
-    if check_remat_policy(policy) == "dots":
-        options["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, list(SAVED_PRODUCTS))
-    return checkpoint(run, x, a, use_reentrant=False, **options)
 
 
 class STGCNBackbone(nn.Module):

@@ -132,6 +132,29 @@ def test_routing_follows_the_jax_block():
     assert _tgcn_types(sgcn_stats=True) == [stock] * 10
 
 
+def test_every_temporal_chain_draws_one_parameter_layout():
+    """The three chains build the same state dict from the same draws of
+    ``generator``; the fused chain refuses what it cannot run (C -> C' or
+    other taps or stride) before it draws anything."""
+    def drawn(cls, *args, **kwargs):
+        g = torch.Generator().manual_seed(3)
+        return cls(*args, generator=g, **kwargs).state_dict()
+
+    want = drawn(stgcn.TemporalConv, 8, 8)
+    for cls in (stgcn.StatsTemporalConv, stgcn.FusedTemporalConv):
+        got = drawn(cls, 8, 8)
+        assert got.keys() == want.keys()
+        for name, w in want.items():
+            assert torch.equal(got[name], w), (cls.__name__, name)
+    for args, kwargs in (((4, 8), {}), ((8, 8, 5), {}),
+                         ((8, 8), dict(stride=2))):
+        g = torch.Generator().manual_seed(3)
+        before = g.get_state()
+        with pytest.raises(ValueError, match="fused chain"):
+            stgcn.FusedTemporalConv(*args, generator=g, **kwargs)
+        assert torch.equal(g.get_state(), before)
+
+
 def test_fused_spatial_conv_feeds_the_sums_to_the_chains_that_take_them():
     """A block's spatial conv emits BN1's sums (in training) where it is
     the fused default one and its temporal module takes them: every

@@ -1,5 +1,5 @@
 """The port's ST-GCN under ``remat_policy="full"`` and ``"dots"``
-(``models/stgcn.py::remat_block``) against no remat and against the JAX
+(``models/layers.py::remat_block``) against no remat and against the JAX
 model's ``remat_policy="dots"`` (``jax.checkpoint_policies.checkpoint_dots``)
 on the same weights, at full block width and a few frames, on the CPU (the
 fused options run their kernels' plain versions here).
@@ -21,7 +21,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from skeleton_action_recognition_tpu.models import stgcn as jax_stgcn
 from skeleton_action_recognition_tpu_torch import interop
-from skeleton_action_recognition_tpu_torch.models import stgcn
+from skeleton_action_recognition_tpu_torch.models import layers, stgcn
 from skeleton_action_recognition_tpu_torch.train import losses
 from skeleton_action_recognition_tpu_torch.train.optim import TFSGD
 from skeleton_action_recognition_tpu_torch.train.steps import make_train_step
@@ -39,7 +39,7 @@ STATS_TOL = dict(rtol=1e-6, atol=1e-7)
 
 
 class ProductCounter(TorchDispatchMode):
-    """Counts the matrix products (``stgcn.SAVED_PRODUCTS``) that reach the
+    """Counts the matrix products (``layers.SAVED_PRODUCTS``) that reach the
     dispatcher while it is on. Entered around a backward, it sits below a
     selective-checkpoint context, which answers the products it keeps
     without running them: what it counts ran."""
@@ -49,7 +49,7 @@ class ProductCounter(TorchDispatchMode):
         self.count = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.count += func in stgcn.SAVED_PRODUCTS
+        self.count += func in layers.SAVED_PRODUCTS
         return func(*args, **(kwargs or {}))
 
 
@@ -193,4 +193,4 @@ def test_unknown_policy_raises():
     with pytest.raises(ValueError, match="remat_policy"):
         stgcn.Model(num_classes=6, remat_policy="offload")
     with pytest.raises(ValueError, match="remat_policy"):
-        stgcn.remat_block(torch.nn.Identity(), torch.zeros(1), None, "dot")
+        layers.remat_block(torch.nn.Identity(), torch.zeros(1), None, "dot")

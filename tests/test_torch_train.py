@@ -84,6 +84,32 @@ def test_batch_norm_train_mode_matches_flax(dtype):
         )
 
 
+@pytest.mark.parametrize("case", ["clamped", "unclamped", "frozen"])
+def test_batch_norm_stats_from_moments(case):
+    """``stats_from_moments`` takes the batch's ``(mean, var)`` from the
+    moments, ``var = E[x^2] - E[x]^2`` clamped at 0 unless ``clamp`` is
+    off (the third channel's moments give a negative variance), and folds
+    them into the running statistics with momentum 0.99, unless
+    ``update_stats`` is off (the remat recompute)."""
+    bn = layers.BatchNorm(3)
+    bn.update_stats = case != "frozen"
+    mean = torch.tensor([1.0, -2.0, 0.5])
+    sq = torch.tensor([3.0, 4.0, 0.2])
+    got_mean, got_var = bn.stats_from_moments(mean, sq, 8,
+                                              clamp=case != "unclamped")
+    want_var = torch.tensor([2.0, 0.0, -0.05])
+    if case != "unclamped":
+        want_var = want_var.clamp(min=0.0)
+    torch.testing.assert_close(got_mean, mean, rtol=0, atol=0)
+    torch.testing.assert_close(got_var, want_var)
+    if case == "frozen":
+        want_mean, want_var = torch.zeros(3), torch.ones(3)
+    else:
+        want_mean, want_var = 0.01 * mean, 0.99 + 0.01 * want_var
+    torch.testing.assert_close(bn.running_mean, want_mean)
+    torch.testing.assert_close(bn.running_var, want_var)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_data_batch_norm_train_mode_matches_flax(dtype):
     """Statistics per (joint, channel) over batch x time."""
