@@ -10,9 +10,10 @@ so the exit code is not 0.
 
 1. ``env``: the card, its power limit, torch and CUDA versions. Without a
    CUDA device the script stops here (it never falls back to the CPU).
-2. ``build``: compiles the thirteen ``csrc/*.cu`` sources (sgcn, radar,
-   radar_dense, stft, tconv and ctrgc, forward and backward, and the fused
-   blocks' tail, ``block_tail.cu``) for ``sm_90a`` from
+2. ``build``: compiles the fourteen ``csrc/*.cu`` sources (sgcn, radar,
+   radar_dense, stft, tconv and ctrgc, forward and backward, the fused
+   blocks' tail, ``block_tail.cu``, and the channels-first BatchNorm,
+   ``channel_norm.cu``) for ``sm_90a`` from
    the checkout, one ``nvcc`` each, at once (seconds, and the compiler's
    register and shared-memory reports); ``sgcn_build``: the registers,
    spills and shared memory of the six f32 spatial-conv kernels
@@ -51,9 +52,25 @@ so the exit code is not 0.
    cell, NM=256, f32 and bf16: z, dx3 and ds within ``CTRGC_TOL``, two
    launches bit for bit, CUDA-event times of kernel and plain version
    beside the bound; first (``ctrgc_build``) their ptxas reports, last
-   (``ctrgc_step``) one training step's launches, 10 of each. Alone:
+   (``ctrgc_step``) one training step's launches, 10 of each, and 86 of
+   each channel_norm entry point. Alone:
    ``python3 -c "import torch, chip_smoke as cs; cs.phase_env();
    cs.phase_ctrgc_kernel(torch.device('cuda', 0))"``.
+   ``channel_norm_kernel``: CTR-GCN's channels-first BatchNorm kernels
+   (``channel_norm_fwd``, ``channel_norm_bwd``) against their plain
+   version (``ops/channel_norm.py::channel_norm_reference`` and its
+   autograd) at the 86 BatchNorms of a B=128, 64-frame training step, bf16
+   (the cell's) and f32: y, the statistics, the running statistics, dx and
+   the weight gradients within ``CHANNEL_NORM_TOL``, two launches bit for
+   bit, the device's busy time (the profiler: at the small BatchNorms a
+   launch's host time exceeds the card's) of kernel, plain version and
+   ``F.batch_norm`` (the layer's route before the kernels) beside the
+   byte bound, and the four kernels' split; first
+   (``channel_norm_build``) their ptxas reports, last
+   (``channel_norm_host``) the host microseconds of a BatchNorm's forward
+   and backward through the kernels and through ``F.batch_norm``. Alone:
+   ``python3 -c "import torch, chip_smoke as cs; cs.phase_env();
+   cs.phase_channel_norm_kernel(torch.device('cuda', 0))"``.
 5. ``slice``: the full-width NTU-60 ST-GCN (T=300) from seeded random
    weights and BatchNorm statistics, behind ``Predictor(max_batch=64)``.
    Requests of 1, 7 and 64 clips: every row finite and summing to 1, ten
@@ -277,7 +294,11 @@ cuDNN's conv alone as ``library_ms``, and the bf16 numbers beside as
 ``bf16_*`` (with ``bf16_library_ms``); ``block_tail_fwd``,
 ``block_tail_bwd``, ``tconv_gue``: f32 time of the eight stride-1 blocks'
 calls at NM=256 with each block's residual (``TAIL_BLOCKS``), and the bf16
-numbers beside as ``bf16_*``; ``radar_*``/``stft_*``: one call at
+numbers beside as ``bf16_*``; ``ctrgc_*``: f32 time of the ten CTR-GCN
+blocks' calls at NM=256, bf16 beside; ``channel_norm_*``: the device's
+busy time of the 86 BatchNorms of a B=128, 64-frame CTR-GCN step in f32,
+the bf16 step's beside, ``F.batch_norm`` as ``library_ms``;
+``radar_*``/``stft_*``: one call at
 16 clips, lambda = 5e-4, with the operator products alone as the dense
 radar kernels' ``library_ms`` and ``torch.stft`` and its backward as the
 STFT kernels' (their ``dft_bound_ms`` beside); ``radar_bwd`` the numbers
@@ -354,6 +375,7 @@ from skeleton_action_recognition_tpu_torch.models.stgcn import Model
 from skeleton_action_recognition_tpu_torch.models import ctrgcn
 from skeleton_action_recognition_tpu_torch.ops import (
     build,
+    channel_norm,
     ctrgc,
     radar,
     resample,
@@ -392,6 +414,7 @@ BLOCK_SHAPES = [
     ((150, 128, 128), 2), ((150, 128, 256), 1), ((75, 256, 256), 2),
 ]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+_DTYPE_NAMES = {v: k for k, v in DTYPES.items()}
 # kernel vs plain, max |diff| / max |plain|. f32: both sum in f32, in other
 # orders. bf16: both round z and the output to bf16 (8 significant bits)
 # once, from sums in other orders, so an element may differ by a bf16 ulp.
@@ -405,7 +428,7 @@ REQUESTS = (1, 7, 64)
 SOURCES = ("sgcn_fwd.cu", "sgcn_bwd.cu", "radar_fwd.cu", "radar_bwd.cu",
            "stft_fwd.cu", "stft_bwd.cu", "tconv_fwd.cu", "tconv_bwd.cu",
            "radar_dense_fwd.cu", "radar_dense_bwd.cu", "block_tail.cu",
-           "ctrgc_fwd.cu", "ctrgc_bwd.cu")
+           "ctrgc_fwd.cu", "ctrgc_bwd.cu", "channel_norm.cu")
 SGCN_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_fwd.cu"
 SGCN_REPLACES = "skeleton_action_recognition_tpu/ops/pallas/sgcn.py:90"
 SGCN_BWD_SOURCE = "skeleton_action_recognition_tpu_torch/csrc/sgcn_bwd.cu"
@@ -605,6 +628,29 @@ CTRGC_OUTPUTS = ("z", "dx3", "ds")
 # in other orders (z and dx3 in bf16 are rounded once from sums that
 # differ in their last f32 bits, so an element may sit one bf16 ulp away)
 CTRGC_TOL = {"f32": 1e-5, "bf16": 2**-7}
+# each entry point's launches in one training step of the full-width
+# CTR-GCN (64 frames, bf16, remat off): the aggregation in each of the ten
+# blocks, and the 86 channels-first BatchNorms
+CTRGCN_STEP_LAUNCHES = {"ctrgc_fwd": 10, "ctrgc_bwd": 10,
+                        "channel_norm_fwd": 86, "channel_norm_bwd": 86}
+# CTR-GCN's channels-first BatchNorms (csrc/channel_norm.cu) at the 64-frame
+# training cell's batch (128 clips), momentum as torch's
+CHANNEL_NORM_KERNELS = ("channel_norm_fwd", "channel_norm_bwd")
+CHANNEL_NORM_BATCH, CHANNEL_NORM_FRAMES = 128, 64
+CHANNEL_NORM_MOMENTUM = 1.0 - layers.TORCH_MOMENTUM
+# kernel vs plain version (both in f32, the statistics summed in other
+# orders), max |diff| / max |plain|: y and dx by their dtype (in bf16 one
+# ulp where the two round on either side of a tie), the mean, invstd and
+# running statistics to f32 rounding; the weight gradients over the sum of
+# their terms' magnitudes (f32 sums of up to 409,600 terms)
+CHANNEL_NORM_TOL = {"f32": 1e-5, "bf16": 2**-7}
+CHANNEL_NORM_SUM_TOL = 1e-5
+# operations an element (csrc/channel_norm.cuh): the statistics (an add,
+# a subtract, a multiply-add) and the normalize (a subtract, a multiply,
+# an add); the reduction (two adds, a subtract, a multiply) and dx (three
+# subtracts, two multiplies). Bytes: x read twice and y written; dy and x
+# read twice and dx written
+CHANNEL_NORM_OPS = {"channel_norm_fwd": 7, "channel_norm_bwd": 9}
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): FLOP/s of
 # f32 on the CUDA cores (TF32 off) and of bf16 on the tensor cores, and the
 # device memory's bytes/s. A kernel's bound is the larger of its operations
@@ -674,11 +720,15 @@ KERNEL_SOURCES = {
     "sgcn_fwd_stats": "skeleton_action_recognition_tpu_torch/csrc/sgcn_fwd.cu",
     **{name: "skeleton_action_recognition_tpu_torch/csrc/block_tail.cu"
        for name in TAIL_KERNELS},
+    **{name: "skeleton_action_recognition_tpu_torch/csrc/channel_norm.cu"
+       for name in CHANNEL_NORM_KERNELS},
 }
 # the tail kernels replace no TPU kernel: XLA fuses this elementwise work
 KERNEL_REPLACES.update({
     "ctrgc_fwd": "none: the JAX package has no CTR-GCN",
     "ctrgc_bwd": "none: the JAX package has no CTR-GCN",
+    "channel_norm_fwd": "none: the JAX package has no CTR-GCN",
+    "channel_norm_bwd": "none: the JAX package has no CTR-GCN",
     "block_tail_fwd": "none: XLA fuses skeleton_action_recognition_tpu/"
                       "models/stgcn.py:179 and :316",
     "block_tail_bwd": "none: XLA fuses the VJP of skeleton_action_"
@@ -1357,8 +1407,9 @@ def ctrgc_inputs(c, t, dtype, device, g):
 
 
 def ctrgc_step_launches(device, batch=CTRGC_NM // 2):
-    """Each aggregation kernel's launches in one training step of the
-    full-width CTR-GCN (64 frames, bf16, remat off)."""
+    """Each of ``CTRGCN_STEP_LAUNCHES``'s entry points' launches in one
+    training step of the full-width CTR-GCN (64 frames, bf16, remat off),
+    the counters reset just before it."""
     model = ctrgcn.Model(num_classes=60, dtype=torch.bfloat16, remat=False,
                          device=device,
                          generator=torch.Generator().manual_seed(SEED))
@@ -1366,7 +1417,7 @@ def ctrgc_step_launches(device, batch=CTRGC_NM // 2):
     reset_launches()
     model(x).sum().backward()
     torch.cuda.synchronize()
-    launches = read_launches(CTRGC_KERNELS)
+    launches = read_launches(tuple(CTRGCN_STEP_LAUNCHES))
     del model, x
     torch.cuda.empty_cache()
     return launches
@@ -1380,7 +1431,8 @@ def phase_ctrgc_kernel(device):
     ``CTRGC_TOL``, two launches of each bit for bit, CUDA-event times of
     kernel and plain version beside the bound (f32 CUDA-core operations
     and the operands' bytes); then one training step's launches (10 of
-    each). Returns the kernels-line totals and those launches."""
+    each, and 86 of each channel_norm entry point). Returns the
+    kernels-line totals and those launches."""
     g = torch.Generator(device=device).manual_seed(SEED + 29)
     totals = {k: {name: Totals() for name in DTYPES} for k in CTRGC_KERNELS}
     emit("ctrgc_build", ptxas={
@@ -1444,9 +1496,227 @@ def phase_ctrgc_kernel(device):
             torch.cuda.empty_cache()
     launches = ctrgc_step_launches(device)
     emit("ctrgc_step", launches=launches)
-    check(launches == dict.fromkeys(CTRGC_KERNELS, 10),
+    check(launches == CTRGCN_STEP_LAUNCHES,
           f"a CTR-GCN training step launched {launches}")
     return {k: dtype_entries(tot) for k, tot in totals.items()}, launches
+
+
+def channel_norm_cells(device, dtype=torch.bfloat16,
+                       batch=CHANNEL_NORM_BATCH, frames=CHANNEL_NORM_FRAMES):
+    """``{(shape, x dtype, y dtype): count}`` of the BatchNorms one
+    training step of the full-width CTR-GCN runs at ``batch`` clips of
+    ``frames`` frames, in ``dtype`` (float32: the model's ``dtype`` None)."""
+    model = ctrgcn.Model(
+        num_classes=60, dtype=None if dtype == torch.float32 else dtype,
+        remat=False, device=device,
+        generator=torch.Generator().manual_seed(SEED))
+    seen = {}
+
+    def hook(mod, args, out):
+        key = (tuple(args[0].shape), args[0].dtype, out.dtype)
+        seen[key] = seen.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, layers.BatchNorm)]
+    with torch.no_grad():
+        model(torch.randn(batch, 3, frames, 25, 2, device=device))
+    for h in handles:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    return seen
+
+
+def channel_norm_inputs(shape, x_dtype, y_dtype, device, g):
+    """``x, weight, bias, running_mean, running_var, dy`` of one
+    BatchNorm, ``x`` off zero mean and unit scale."""
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device=device) * 2 + 3).to(x_dtype)
+    w = torch.rand(c, generator=g, device=device) + 0.5
+    b = torch.randn(c, generator=g, device=device)
+    rm = torch.randn(c, generator=g, device=device) * 0.1
+    rv = torch.rand(c, generator=g, device=device) + 0.5
+    dy = torch.randn(shape, generator=g, device=device).to(y_dtype)
+    return x, w, b, rm, rv, dy
+
+
+def channel_norm_errors(x, dy, got, want):
+    """Kernel vs plain version: ``got`` and ``want`` are ``(y, mean,
+    invstd, running_mean, running_var, dx, grad_weight, grad_bias)``; the
+    weight gradients over the sums of their terms' magnitudes."""
+    names = ("y", "mean", "invstd", "running_mean", "running_var", "dx")
+    errs = {k: rel_err(p, q) for k, p, q in zip(names, got, want)}
+    axes = (0,) + tuple(range(2, x.ndim))
+    shape = (-1,) + (1,) * (x.ndim - 2)
+    dyf = dy.float()
+    xhat = (x.float() - want[1].view(shape)) * want[2].view(shape)
+    for k, terms, p, q in (("grad_weight", dyf * xhat, got[6], want[6]),
+                           ("grad_bias", dyf, got[7], want[7])):
+        errs[k] = ((p - q).abs() / terms.abs().sum(axes)).max().item()
+    return errs
+
+
+def channel_norm_host_us(device, rounds=5, iters=200):
+    """Host microseconds of one ``BatchNorm(axis=1)`` forward and backward
+    in training (bf16, ``(2, 16, 4, 25)``: the card's work is a fraction
+    of the host's), through the kernels and through ``F.batch_norm`` as
+    the layer ran it before them, in turns; the median round of each."""
+    bn = layers.BatchNorm(16, torch.bfloat16, epsilon=layers.TORCH_EPSILON,
+                          momentum=layers.TORCH_MOMENTUM, axis=1).to(device)
+    x = torch.randn(2, 16, 4, 25, device=device).bfloat16()
+    x.requires_grad_(True)
+    dy = torch.randn(x.shape, device=device).bfloat16()
+    leaves = (x, bn.weight, bn.bias)
+
+    def kernels():
+        torch.autograd.grad(bn(x), leaves, dy)
+
+    def library():
+        y = torch.nn.functional.batch_norm(
+            x, bn.running_mean, bn.running_var, bn.weight, bn.bias, True,
+            CHANNEL_NORM_MOMENTUM, bn.epsilon).to(torch.bfloat16)
+        torch.autograd.grad(y, leaves, dy)
+
+    us = {"kernels": [], "library": []}
+    for _ in range(rounds):
+        for route, fn in (("kernels", kernels), ("library", library)):
+            fn()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            us[route].append(1e6 * (time.perf_counter() - start) / iters)
+    return {f"{k}_us": statistics.median(v) for k, v in us.items()}
+
+
+def phase_channel_norm_kernel(device):
+    """CTR-GCN's channels-first BatchNorm kernels (``channel_norm_fwd``,
+    ``channel_norm_bwd``) through their wrappers against their plain
+    version (``channel_norm_reference``, its autograd in f32) at the
+    distinct (shape, x dtype, y dtype) of the 86 BatchNorms of a B=128,
+    64-frame training step, bf16 and f32: y, the mean and invstd, the
+    running statistics after the update, dx and the weight gradients
+    within ``CHANNEL_NORM_TOL``/``CHANNEL_NORM_SUM_TOL``, two launches of
+    each bit for bit, the device's busy ms (:func:`busy_ms`) of kernel,
+    plain version and ``F.batch_norm`` (x in its dtype, float32 for a
+    float32 y, then cast: the layer's route before the kernels) beside the
+    bound, each summed over the step's BatchNorms of that shape, and the
+    kernels' own split (``channel_norm_split``); then the host
+    microseconds of a BatchNorm through the kernels and through
+    ``F.batch_norm``. Returns the kernels-line totals."""
+    g = torch.Generator(device=device).manual_seed(SEED + 31)
+    totals = {k: {name: Totals(library=True) for name in DTYPES}
+              for k in CHANNEL_NORM_KERNELS}
+    build.load_library("channel_norm.cu")
+    emit("channel_norm_build",
+         ptxas=ptxas_entries("channel_norm.cu", "channel_norm"))
+    eps, mom = layers.TORCH_EPSILON, CHANNEL_NORM_MOMENTUM
+    split = {name: {} for name in DTYPES}
+    for name, dtype in DTYPES.items():
+        norms = channel_norm_cells(device, dtype)
+        check(sum(norms.values()) == 86,
+              f"a {name} CTR-GCN step ran {sum(norms.values())} BatchNorms")
+        for (shape, x_dtype, y_dtype), count in sorted(norms.items(),
+                                                       key=str):
+            x, w, b, rm, rv, dy = channel_norm_inputs(shape, x_dtype,
+                                                      y_dtype, device, g)
+            runs, c = [], shape[1]
+            for _ in range(2):
+                rmk, rvk = rm.clone(), rv.clone()
+                y, xs, stats = channel_norm._forward(x, w, b, rmk, rvk, mom,
+                                                     eps, True, y_dtype)
+                runs.append((y, stats[:c], stats[c:2 * c], rmk, rvk,
+                             *channel_norm._backward(dy, xs, w, stats, True)))
+            torch.cuda.synchronize()
+            bit_identical = all(torch.equal(p, q) for p, q in zip(*runs))
+            got = runs[0]
+            del runs
+            xr = x.clone().requires_grad_(True)
+            wr, br = w.clone().requires_grad_(True), b.clone().requires_grad_(
+                True)
+            rmr, rvr = rm.clone(), rv.clone()
+            yr = channel_norm.channel_norm_reference(xr, wr, br, rmr, rvr,
+                                                     mom, eps, True, y_dtype)
+            axes = (0,) + tuple(range(2, x.ndim))
+            var, mean = torch.var_mean(x.float(), axes, unbiased=False)
+            want = (yr.detach(), mean, torch.rsqrt(var + eps), rmr, rvr,
+                    *torch.autograd.grad(yr, (xr, wr, br), dy))
+            errs = channel_norm_errors(x, dy, got, want)
+            tol = {k: CHANNEL_NORM_SUM_TOL if k.startswith("grad")
+                   else CHANNEL_NORM_TOL["f32"] for k in errs}
+            tol["y"] = CHANNEL_NORM_TOL[_DTYPE_NAMES[y_dtype]]
+            tol["dx"] = CHANNEL_NORM_TOL[_DTYPE_NAMES[x_dtype]]
+            abs_errs = {"channel_norm_fwd": max_abs_err(got[:1], want[:1]),
+                        "channel_norm_bwd": max_abs_err(got[5:], want[5:])}
+            del got, want, yr, xr
+
+            def fwd():
+                return channel_norm._forward(x, w, b, rm, rv, mom, eps, True,
+                                             y_dtype)
+
+            def bwd():
+                return channel_norm._backward(dy, x, w, stats, True)
+
+            def autograd_route(forward):
+                # its own leaves and running statistics (F.batch_norm
+                # saves them for its backward)
+                xg = x.clone().requires_grad_(True)
+                wg = w.clone().requires_grad_(True)
+                bg = b.clone().requires_grad_(True)
+                rmg, rvg = rm.clone(), rv.clone()
+                y = forward(xg, wg, bg, rmg, rvg)
+                return ({"fwd": lambda: forward(xg, wg, bg, rmg, rvg),
+                         "bwd": lambda: torch.autograd.grad(
+                             y, (xg, wg, bg), dy, retain_graph=True)},
+                        (xg, wg, bg, y))
+
+            plain, keep_plain = autograd_route(
+                lambda xg, wg, bg, rmg, rvg:
+                channel_norm.channel_norm_reference(
+                    xg, wg, bg, rmg, rvg, mom, eps, True, y_dtype))
+            library, keep_library = autograd_route(
+                lambda xg, wg, bg, rmg, rvg: torch.nn.functional.batch_norm(
+                    xg.float() if y_dtype == torch.float32 else xg, rmg,
+                    rvg, wg, bg, True, mom, eps).to(y_dtype))
+            times = {}
+            for k, own, way in (("channel_norm_fwd", fwd, "fwd"),
+                                ("channel_norm_bwd", bwd, "bwd")):
+                ms, kernels = busy_ms(own)
+                times[k] = {"ms": ms, "plain_ms": busy_ms(plain[way])[0],
+                            "library_ms": busy_ms(library[way])[0]}
+                for kernel, kernel_ms in kernels.items():
+                    split[name][kernel] = (split[name].get(kernel, 0.0)
+                                           + count * kernel_ms)
+            del plain, library, keep_plain, keep_library
+            n, sx, sy = x.numel(), x.element_size(), dy.element_size()
+            bounds = {
+                "channel_norm_fwd": bound(
+                    CHANNEL_NORM_OPS["channel_norm_fwd"] * n,
+                    n * (2 * sx + sy), "f32"),
+                "channel_norm_bwd": bound(
+                    CHANNEL_NORM_OPS["channel_norm_bwd"] * n,
+                    n * (2 * sy + 3 * sx), "f32")}
+            emit(
+                "channel_norm_kernel", dtype=name, shape=shape,
+                x=_DTYPE_NAMES[x_dtype], y=_DTYPE_NAMES[y_dtype],
+                count=count, err=errs, tol=tol, bit_identical=bit_identical,
+                **{f"{k}_{m}": v for k, d in times.items()
+                   for m, v in d.items()},
+                **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+                **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+            )
+            where = f"{name}, {shape} {x_dtype} -> {y_dtype}"
+            check(bit_identical, f"channel_norm repeats differ at {where}")
+            check(all(errs[k] <= tol[k] for k in errs),
+                  f"channel_norm outputs disagree at {where}: {errs}")
+            for k, tot in totals.items():
+                tot[name].add(times[k], abs_errs[k], *bounds[k], count)
+            del x, dy, stats
+            torch.cuda.empty_cache()
+    emit("channel_norm_split", **split)
+    emit("channel_norm_host", **channel_norm_host_us(device))
+    return {k: dtype_entries(tot) for k, tot in totals.items()}
 
 
 def seeded_model(name, fused, state=None, seed=SEED, **options):
@@ -1807,7 +2077,7 @@ def phase_export(device, state, requests, folded):
 # the port's kernel entry points, as ops.build.launch counts their calls
 COUNTERS = ("sgcn_fwd", "sgcn_fwd_stats", "sgcn_bwd", "tconv_fwd",
             "tconv_bwd", "block_tail_fwd", "block_tail_bwd", "tconv_gue",
-            "ctrgc_fwd", "ctrgc_bwd",
+            "ctrgc_fwd", "ctrgc_bwd", "channel_norm_fwd", "channel_norm_bwd",
             "radar_fwd", "radar_bwd", "radar_bwd_loc_lam",
             "radar_dense_fwd", "radar_dense_bwd", "stft_fwd", "stft_bwd")
 
@@ -1955,6 +2225,22 @@ def trace(run, steps):
         "span_ms_per_step": window * 1e3 / steps,
         "idle_share": 1.0 - reduced["busy_s"] / window,
     }, {name: s * 1e6 for name, s in reduced["by_name"].items()}
+
+
+def busy_ms(fn, iters=20, warmup=3):
+    """``(ms, {kernel: ms})``: the device's busy time a call of ``fn`` over
+    ``iters`` calls after ``warmup`` (the union of the kernels', copies'
+    and fills' intervals, the host's launch time left out, which at a
+    small BatchNorm exceeds the device's), and its device time by kernel
+    name, the name cut at its template arguments."""
+    for _ in range(warmup):
+        fn()
+    _, summary, by_name = trace(fn, iters)
+    split = {}
+    for name, us in by_name.items():
+        short = name.split("<")[0].split("(")[0].replace("void ", "")
+        split[short] = split.get(short, 0.0) + us / 1e3 / iters
+    return summary["busy_ms_per_step"], split
 
 
 def largest(times_us, steps=1, top=15):
@@ -4383,7 +4669,8 @@ def main():
     ctrgc_totals, ctrgc_launches = phase_ctrgc_kernel(device)
     new_totals = {"sgcn_fwd_stats": phase_kernel_stats(device),
                   **phase_tconv_kernel(device),
-                  **phase_block_tail_kernel(device), **ctrgc_totals}
+                  **phase_block_tail_kernel(device), **ctrgc_totals,
+                  **phase_channel_norm_kernel(device)}
     lap("kernels")
     rng = np.random.default_rng(SEED)
     requests = {
@@ -4465,7 +4752,7 @@ def main():
              name, f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu"),
          "replaces": KERNEL_REPLACES[name], **new_totals[name]}
         for name in ("sgcn_fwd_stats", "tconv_fwd", "tconv_bwd",
-                     *TAIL_KERNELS, *CTRGC_KERNELS)
+                     *TAIL_KERNELS, *CTRGC_KERNELS, *CHANNEL_NORM_KERNELS)
     ] + [
         {"name": name, "route": "cuda",
          "source": f"skeleton_action_recognition_tpu_torch/csrc/{name}.cu",

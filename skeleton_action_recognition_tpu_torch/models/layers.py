@@ -21,6 +21,9 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from skeleton_action_recognition_tpu_torch.ops.channel_norm import (
+    channel_norm,
+)
 from skeleton_action_recognition_tpu_torch.parallel.distributed import (
     active,
     global_means,
@@ -103,9 +106,10 @@ class BatchNorm(nn.Module):
     ``axis=1`` normalizes the channels of a channels-first ``(N, C, ...)``
     input instead (CTR-GCN's ``nn.BatchNorm2d``/``1d`` layout, with
     ``TORCH_EPSILON``); the statistics are then over every other axis.
-    Outside a process group it runs ``torch.nn.functional.batch_norm``, one
-    fused kernel each way, whose running variance is the batch's unbiased
-    one (as the published ``nn.BatchNorm2d``'s); in a process group the
+    Outside a process group its running variance is the batch's unbiased
+    one (as the published ``nn.BatchNorm2d``'s): a CUDA input in training
+    takes the kernels of :func:`..ops.channel_norm.channel_norm`, anything
+    else ``torch.nn.functional.batch_norm``; in a process group the
     moments of the global batch as above.
 
     ``weight``/``bias`` are flax's ``scale``/``bias``, ``running_mean``/
@@ -148,11 +152,19 @@ class BatchNorm(nn.Module):
         return y if self.dtype is None else y.to(self.dtype)
 
     def _fused(self, x):
-        """The channels-first normalize through torch's ``batch_norm``, in
-        ``x``'s dtype (float32 for ``dtype`` None), the running statistics
-        updated unless ``update_stats`` is off in training (then copies of
-        them take the update: a recomputed forward saves what the first
-        saved)."""
+        """The channels-first normalize, in ``dtype`` (float32 for None),
+        the running statistics updated unless ``update_stats`` is off in
+        training. A CUDA input in training goes through the channel_norm
+        kernels, ``x`` in its own dtype (float32 or bfloat16, else
+        ``TypeError``); anything else through torch's ``batch_norm`` in
+        ``x``'s dtype (float32 for ``dtype`` None), then cast, copies of
+        the statistics taking the update when it is off (a recomputed
+        forward saves what the first saved)."""
+        if self.training and x.device.type == "cuda":
+            return channel_norm(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, 1.0 - self.momentum, self.epsilon,
+                self.update_stats, self.dtype or torch.float32)
         mean, var = self.running_mean, self.running_var
         if self.training and not self.update_stats:
             mean, var = mean.clone(), var.clone()

@@ -107,16 +107,33 @@ def check_cuda(kernel: str, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def raw_stream(index: int) -> int:
+    """The ``cudaStream_t`` of card ``index``'s current stream."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(fn, name: str, device, *args) -> None:
-    """Call ``fn(*args, stream)`` on ``device``'s current stream; raise if
-    the launch was refused. Every kernel of the package is launched here:
-    each call counts as ``launch.<name>`` (:func:`..tracing.counters`) and,
-    under a profiler, is the range ``op.<name>`` around the kernels the
-    entry point enqueues."""
+    """Call ``fn(*args, stream)`` on ``device`` with its current stream;
+    raise if the launch was refused. Every kernel of the package is
+    launched here: each call counts as ``launch.<name>``
+    (:func:`..tracing.counters`) and, under a profiler, is the range
+    ``op.<name>`` around the kernels the entry point enqueues. The card is
+    switched only when ``device`` is not the current one, and the stream
+    is read as its raw handle: a launch's host time is most of a small
+    kernel's."""
     import torch
 
     tracing.count(f"launch.{name}")
-    with torch.cuda.device(device), tracing.span(f"op.{name}"):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    here = torch.cuda.current_device()
+    index = getattr(device, "index", None)
+    index = here if index is None else index
+    with tracing.span(f"op.{name}"):
+        if index == here:
+            err = fn(*args, raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, raw_stream(index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")

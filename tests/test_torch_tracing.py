@@ -6,7 +6,6 @@ call and, profiled, is the range ``op.<name>`` around it."""
 import contextlib
 import sys
 import threading
-import types
 
 import numpy as np
 import pytest
@@ -52,11 +51,11 @@ class OneRank:
 
 @pytest.fixture
 def stand_in_cuda(monkeypatch):
-    """``launch`` on the CPU: no device switch, stream 0."""
+    """``launch`` on the CPU: card 0 current, no device switch, stream 0."""
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(build, "raw_stream", lambda index: 0)
 
 
 def test_span_enters_no_record_function_without_a_profiler(monkeypatch):
